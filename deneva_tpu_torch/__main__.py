@@ -1,0 +1,41 @@
+"""Run a named cell of the port and print its ``[summary]`` line.
+
+    python -m deneva_tpu_torch --cell headline --device cuda --ticks 300
+
+Runs 20 warm-up ticks, then ``--ticks`` timed ticks, and prints the
+``[summary]`` line, commits per tick, and the tick time: from CUDA events
+on a GPU, from the host clock on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from deneva_tpu_torch import cells
+from deneva_tpu_torch.engine.scheduler import Engine, timed_run
+
+#: ticks run before the timed window
+WARMUP_TICKS = 20
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="python -m deneva_tpu_torch")
+    ap.add_argument("--cell", choices=sorted(cells.CELLS), default="entry")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ticks", type=int, default=300)
+    args = ap.parse_args(argv)
+
+    eng = Engine(cells.config(args.cell), device=args.device)
+    state = eng.run(WARMUP_TICKS)
+    before = eng.summary(state)["txn_cnt"]
+    state, per_tick = timed_run(eng, args.ticks, state)
+    commits = eng.summary(state)["txn_cnt"] - before
+    clock = "cuda events" if eng.device.type == "cuda" else "host clock"
+    print(eng.summary_line(state))
+    print(f"cell={args.cell} device={eng.device} ticks={args.ticks} "
+          f"commits_per_tick={commits / max(args.ticks, 1)} "
+          f"tick_ms={per_tick * 1e3} ({clock})")
+
+
+if __name__ == "__main__":
+    main()

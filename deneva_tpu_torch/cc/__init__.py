@@ -1,0 +1,25 @@
+"""CC-algorithm registry (the reference's CC_ALG compile switch).  The
+port carries NO_WAIT so far."""
+
+from deneva_tpu_torch.cc.base import AccessDecision, CCPlugin
+from deneva_tpu_torch.cc.no_wait import NoWait
+
+REGISTRY: dict[str, CCPlugin] = {}
+
+
+def register(plugin: CCPlugin) -> CCPlugin:
+    REGISTRY[plugin.name] = plugin
+    return plugin
+
+
+register(NoWait())
+
+
+def get(name: str) -> CCPlugin:
+    if name not in REGISTRY:
+        raise KeyError(f"CC algorithm {name!r} not registered "
+                       f"(have: {sorted(REGISTRY)})")
+    return REGISTRY[name]
+
+
+__all__ = ["AccessDecision", "CCPlugin", "REGISTRY", "register", "get"]

@@ -1,0 +1,534 @@
+"""The batched scheduler tick, in PyTorch: the rebuild of the reference's
+worker loop (system/worker_thread.cpp:183-275) for every in-flight txn at
+once.  One tick:
+
+  1. wakes aborted txns whose backoff expired (abort_queue.cpp:26-82);
+  2. admits new txns into free slots from the query pool and draws their
+     timestamps (worker_thread.cpp:460-517);
+  3. commits txns that finished their access program, appending their
+     writes to a deferred write ring (txn.cpp:487-554);
+  4. runs the CC access kernel for every txn's current access;
+  5. sends aborted txns to exponential backoff (worker_thread.cpp:160-171).
+
+This is the port of ``deneva_tpu/engine/scheduler.py`` for one slice:
+YCSB + NO_WAIT, single shard, SERIALIZABLE, NORMAL mode, commit before
+access, with ``fused_arbitrate`` on or off and every other opt-in flag
+off.  ``check_slice`` refuses anything else.  Every observatory hook of
+the reference tick is a no-op at those flags and is left out.
+
+PyTorch runs eagerly, so the tick is a plain function that updates the
+state's counters and rings in place (each in-place site says so) and
+never reads a device value on the host: no tick syncs the device.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from deneva_tpu_torch import cc as cc_registry
+from deneva_tpu_torch import workloads as wl_registry
+from deneva_tpu_torch.config import (
+    MODE_NORMAL, NO_WAIT, SERIALIZABLE, YCSB, Config, optin_flags,
+)
+from deneva_tpu_torch.engine.state import (
+    NULL_KEY, STATUS_BACKOFF, STATUS_FREE, STATUS_RUNNING, STATUS_WAITING,
+    TxnState,
+)
+from deneva_tpu_torch.ops import segment as seg
+from deneva_tpu_torch.workloads.base import QueryPool
+
+I32 = torch.int32
+F32 = torch.float32
+I64 = torch.int64
+
+#: empty write-ring cell (the reference's out-of-bounds scatter sentinel)
+NULL_ROW = NULL_KEY
+
+#: the write ring is flushed into the data table every this many ticks.
+#: The reference flushes by a data-dependent ``lax.cond`` at 3/4
+#: occupancy; reading that condition here would sync the device every
+#: tick.  The flush is invisible to the result (the increments are blind
+#: and ``data`` is read only after ``_flush_body``), and a tick appends at
+#: most B of the ring's 4B rows, so a fixed flush every 3 ticks never
+#: overflows it.
+FLUSH_EVERY = 3
+
+
+class EngineState(NamedTuple):
+    txn: TxnState
+    db: dict                   # CC-plugin tensors (per-row and per-slot)
+    data: torch.Tensor         # (n_rows,) int32 row payload (increment oracle)
+    tables: dict               # workload tables ({} for YCSB)
+    stats: dict                # counters and rings
+    tick: int                  # host int: the tick count is data-independent
+    pool_cursor: torch.Tensor  # () int32
+    ts_counter: torch.Tensor   # () int32
+
+
+STAT_KEYS_I32 = (
+    "txn_cnt", "total_txn_abort_cnt", "unique_txn_abort_cnt",
+    "local_txn_start_cnt", "twopl_wait_cnt", "write_cnt", "user_abort_cnt",
+    "vabort_cnt", "recon_cnt", "parts_touched", "multi_part_txn_cnt",
+    "measured_ticks", "invariant_violation_cnt",
+)
+STAT_KEYS_F32 = (
+    "txn_run_time_ticks", "txn_total_time_ticks", "lat_process_time",
+    "lat_cc_block_time", "lat_abort_time", "lat_network_time",
+)
+
+#: commit-latency sampling ring depth (StatsArr, stats_array.cpp)
+LAT_SAMPLES = 1 << 14
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; asking for CUDA on a host
+    without it raises (never a quiet fall back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' was asked for but torch.cuda.is_available() "
+                "is false; pass device='cpu' to run on the host")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def check_slice(cfg: Config) -> None:
+    """Raise NotImplementedError for a config outside the ported slice."""
+    bad = []
+    if cfg.cc_alg != NO_WAIT:
+        bad.append(f"cc_alg={cfg.cc_alg}")
+    if cfg.workload != YCSB:
+        bad.append(f"workload={cfg.workload}")
+    if cfg.isolation_level != SERIALIZABLE:
+        bad.append(f"isolation_level={cfg.isolation_level}")
+    if cfg.mode != MODE_NORMAL:
+        bad.append(f"mode={cfg.mode}")
+    if cfg.node_cnt != 1 or cfg.part_cnt != 1:
+        bad.append(f"node_cnt={cfg.node_cnt}, part_cnt={cfg.part_cnt}")
+    if cfg.sub_ticks > 1:
+        bad.append(f"sub_ticks={cfg.sub_ticks}")
+    if cfg.dense_lock_state:
+        bad.append("dense_lock_state")
+    if cfg.commit_after_access:
+        bad.append("commit_after_access")
+    for name, flag in optin_flags().items():
+        if name != "fused_arbitrate" and getattr(cfg, name) != flag.default:
+            bad.append(name)
+    if bad:
+        raise NotImplementedError(
+            "outside the ported slice (YCSB + NO_WAIT, single shard, "
+            "default flags): " + ", ".join(bad))
+
+
+def _zeros_stats(B: int, R: int, device) -> dict:
+    """Counters and rings at default flags.  Rings that take dropped lanes
+    carry B scratch cells past their end (see the scatter sites)."""
+    z = lambda dt: torch.zeros((), dtype=dt, device=device)
+    s = {k: z(I32) for k in STAT_KEYS_I32}
+    s.update({k: z(F32) for k in STAT_KEYS_F32})
+    s["arr_lat_short"] = torch.zeros(LAT_SAMPLES + B, dtype=I32,
+                                     device=device)
+    s["lat_ring_cursor"] = z(I32)
+    # committed-write ring: one (R,) row per committing txn, 4B rows plus
+    # B scratch rows for non-writing lanes
+    s["arr_wr_ring"] = torch.full((5 * B, R), NULL_ROW, dtype=I32,
+                                  device=device)
+    s["wr_ring_cursor"] = z(I32)
+    return s
+
+
+def _pool_to_device(pool: QueryPool, device) -> dict:
+    """Pack the host pool for the admission fetch: per-access fields into
+    one (Q, R) int32 (key*2+iw, -1 for padding), per-txn scalars into one
+    (Q,) int32; args/aux only when the workload uses them."""
+    assert pool.max_req < 256 and int(pool.txn_type.max()) < 256
+    kw = np.where(pool.keys == np.int32(2**31 - 1), np.int64(-1),
+                  pool.keys.astype(np.int64) * 2 + pool.is_write)
+    meta = (pool.n_req.astype(np.int64)
+            | (pool.txn_type.astype(np.int64) << 8)).astype(np.int32)
+    out = {"kw": torch.from_numpy(kw.astype(np.int32)).to(device),
+           "meta": torch.from_numpy(meta).to(device)}
+    if pool.args.any():
+        out["args"] = torch.from_numpy(pool.args).to(device)
+    if pool.aux.any():
+        out["aux"] = torch.from_numpy(pool.aux).to(device)
+    return out
+
+
+def pool_admit(pool_dev: dict, txn: TxnState, admit, frank, pool_cursor,
+               cap: int, Q: int):
+    """Fetch pool rows [cursor, cursor+cap) and place them in the admitted
+    slots: rank k goes to the k-th free slot.  The reference scatters the
+    block into the slots; here each admitted slot gathers its block row
+    (admitted ranks are distinct and below cap), which writes the same
+    values with no duplicate-index hazard."""
+    dev = txn.keys.device
+    bidx = (pool_cursor + torch.arange(cap, dtype=I32, device=dev)) % Q
+    blk_kw = pool_dev["kw"][bidx.to(I64)]              # (cap, R)
+    blk_meta = pool_dev["meta"][bidx.to(I64)]          # (cap,)
+    blk_keys = torch.where(blk_kw < 0, NULL_KEY, blk_kw >> 1)
+    blk_iw = (blk_kw >= 0) & ((blk_kw & 1) == 1)
+
+    r = torch.where(admit, frank, 0).to(I64)
+    a2 = admit[:, None]
+    keys = torch.where(a2, blk_keys[r], txn.keys)
+    is_write = torch.where(a2, blk_iw[r], txn.is_write)
+    n_req = torch.where(admit, blk_meta[r] & 0xFF, txn.n_req)
+    txn_type = torch.where(admit, (blk_meta[r] >> 8) & 0xFF, txn.txn_type)
+    pool_idx = torch.where(admit, bidx[r], txn.pool_idx)
+    targs = txn.targs
+    if "args" in pool_dev:
+        targs = torch.where(a2, pool_dev["args"][bidx.to(I64)][r], targs)
+    aux = txn.aux
+    if "aux" in pool_dev:
+        aux = torch.where(a2, pool_dev["aux"][bidx.to(I64)][r], aux)
+    return keys, is_write, n_req, txn_type, targs, aux, pool_idx
+
+
+def bump(stats: dict, key: str, amount, measuring: bool) -> dict:
+    """Warmup-gated counter increment (INC_STATS + is_warmup_done,
+    system/helper.h:136-150), in place.  A float32 counter adds the int32
+    amount converted to float32, one add per bump, as the reference does."""
+    if measuring:
+        stats[key].add_(amount)
+    return stats
+
+
+def record_commit_latency(stats: dict, commit, t: int, start_tick,
+                          measuring: bool) -> dict:
+    """Append committing txns' short latencies to the sampling ring,
+    keeping the last LAT_SAMPLES commits under wrap.  Recorded lanes land
+    on distinct ring cells and the rest on distinct scratch cells past
+    LAT_SAMPLES, so the in-place ``index_copy_`` never sees a duplicate
+    index."""
+    if not measuring:
+        return stats
+    c = commit.to(I32)
+    crank = torch.cumsum(c, 0, dtype=I32) - c
+    n_commit = c.sum(dtype=I32)
+    rec = commit & (crank >= n_commit - LAT_SAMPLES)
+    lanes = torch.arange(commit.shape[0], dtype=I32, device=commit.device)
+    pos = torch.where(rec, (stats["lat_ring_cursor"] + crank) % LAT_SAMPLES,
+                      LAT_SAMPLES + lanes)
+    stats["arr_lat_short"].index_copy_(0, pos.to(I64), t - start_tick)
+    stats["lat_ring_cursor"].add_(n_commit)
+    return stats
+
+
+def track_parts_touched(stats: dict, commit, measuring: bool) -> dict:
+    """Distinct-partition counters per commit: one partition each, on the
+    single-partition slice (check_slice refuses part_cnt > 1)."""
+    return bump(stats, "parts_touched", commit.sum(dtype=I32), measuring)
+
+
+def track_state_latencies(stats: dict, txn: TxnState, measuring) -> dict:
+    """End-of-tick latency decomposition integrals (stats.cpp:992-999)."""
+    for key, st_v in (("lat_process_time", STATUS_RUNNING),
+                      ("lat_cc_block_time", STATUS_WAITING),
+                      ("lat_abort_time", STATUS_BACKOFF)):
+        stats = bump(stats, key, (txn.status == st_v).sum(dtype=I32),
+                     measuring)
+    return stats
+
+
+def flush_write_ring(data: torch.Tensor, stats: dict) -> None:
+    """Apply the write ring to the data table and empty it, in place.
+    Increments are int32 ``index_add_`` (exact in any order); empty cells
+    add 0 at a row spread by lane, so they never pile onto one row."""
+    n_rows = data.shape[0]
+    B = stats["arr_wr_ring"].shape[0] // 5
+    cells = stats["arr_wr_ring"][:4 * B].reshape(-1)
+    valid = cells != NULL_ROW
+    spread = torch.arange(cells.shape[0], dtype=I32,
+                          device=cells.device) % n_rows
+    data.index_add_(0, torch.where(valid, cells, spread).to(I64),
+                    valid.to(I32))
+    stats["arr_wr_ring"].fill_(NULL_ROW)
+    stats["wr_ring_cursor"].zero_()
+
+
+def make_tick(cfg: Config, plugin, pool_dev: dict, workload):
+    check_slice(cfg)
+    Q = pool_dev["kw"].shape[0]
+    redraw = plugin.new_ts_on_restart or cfg.restart_new_ts
+    REBASE_AT, REBASE_BY = 3 << 29, 1 << 30
+
+    def _penalty(restarts):
+        if not cfg.backoff:
+            return torch.full_like(restarts, cfg.abort_penalty_ticks)
+        shift = torch.clamp(restarts, max=16)
+        return torch.clamp(
+            cfg.abort_penalty_ticks * (torch.ones_like(shift) << shift),
+            max=cfg.abort_penalty_max_ticks)
+
+    def tick_fn(state: EngineState) -> EngineState:
+        txn, db, data, stats = state.txn, state.db, state.data, state.stats
+        t = state.tick
+        measuring = t >= cfg.warmup_ticks
+        B, R = txn.keys.shape
+        dev = data.device
+        ridx = torch.arange(R, dtype=I32, device=dev)[None, :]
+
+        # ---- 1. backoff expiry: restart aborted txns ----
+        expire = (txn.status == STATUS_BACKOFF) & (txn.backoff_until <= t)
+        status = torch.where(expire, STATUS_RUNNING, txn.status)
+        start_tick = torch.where(expire, t, txn.start_tick)
+
+        # ---- 2. admission from the query pool ----
+        free = status == STATUS_FREE
+        cap = cfg.admit_cap if cfg.admit_cap is not None else cfg.batch_size
+        cap = min(cap, cfg.batch_size, Q)
+        frank = torch.cumsum(free, 0, dtype=I32) - free.to(I32)
+        free = free & (frank < cap)
+        n_free = free.sum(dtype=I32)
+
+        keys, is_write, n_req, txn_type, targs, aux, pool_idx = pool_admit(
+            pool_dev, txn, free, frank, state.pool_cursor, cap, Q)
+
+        # timestamps: fresh txns always; restarted txns iff the algorithm
+        # re-draws per attempt (worker_thread.cpp:492-495)
+        need_ts = free | expire if redraw else free
+        trank = torch.cumsum(need_ts, 0, dtype=I32) - need_ts.to(I32)
+        ts = torch.where(need_ts, state.ts_counter + trank, txn.ts)
+        ts_counter = state.ts_counter + need_ts.sum(dtype=I32)
+
+        status = torch.where(free, STATUS_RUNNING, status)
+        cursor = torch.where(free, 0, txn.cursor)
+        restarts = torch.where(free, 0, txn.restarts)
+        start_tick = torch.where(free, t, start_tick)
+        first_start_tick = torch.where(free, t, txn.first_start_tick)
+        stats = bump(stats, "local_txn_start_cnt", n_free, measuring)
+
+        txn = TxnState(status=status, cursor=cursor, ts=ts,
+                       pool_idx=pool_idx, restarts=restarts,
+                       backoff_until=txn.backoff_until,
+                       start_tick=start_tick,
+                       first_start_tick=first_start_tick, keys=keys,
+                       is_write=is_write, n_req=n_req, txn_type=txn_type,
+                       targs=targs, aux=aux)
+        db = plugin.on_start(cfg, db, txn, free | expire)
+
+        # ---- 3. commit (before the access phase) ----
+        finishing = (txn.status == STATUS_RUNNING) & (txn.cursor >= txn.n_req)
+        ua = workload.user_abort(cfg, txn, finishing)
+        finishing = finishing & ~ua
+        ok, db = plugin.validate(cfg, db, txn, finishing, t)
+        commit = finishing & ok
+        vabort = finishing & ~ok
+        db = plugin.on_commit(cfg, db, txn, commit, commit_ts=txn.ts, tick=t)
+
+        wmask = commit[:, None] & txn.is_write & (ridx < txn.n_req[:, None])
+        # append committed write keys to the ring, one row per writing txn
+        # at its commit rank; other lanes go to distinct scratch rows past
+        # 4B, so the in-place index_copy_ sees no duplicate index
+        ring = stats["arr_wr_ring"]
+        writing = commit & wmask.any(dim=1)
+        wrank = torch.cumsum(writing, 0, dtype=I32) - writing.to(I32)
+        lanes = torch.arange(B, dtype=I32, device=dev)
+        rowpos = torch.where(writing, stats["wr_ring_cursor"] + wrank,
+                             4 * B + lanes)
+        ring.index_copy_(0, rowpos.to(I64),
+                         torch.where(wmask, txn.keys, NULL_ROW))
+        stats["wr_ring_cursor"].add_(writing.sum(dtype=I32))
+
+        stats = bump(stats, "txn_cnt", commit.sum(dtype=I32), measuring)
+        stats = bump(stats, "write_cnt", wmask.sum(dtype=I32), measuring)
+        stats = bump(stats, "vabort_cnt", vabort.sum(dtype=I32), measuring)
+        stats = track_parts_touched(stats, commit, measuring)
+        stats = record_commit_latency(stats, commit, t, txn.start_tick,
+                                      measuring)
+        stats = bump(stats, "unique_txn_abort_cnt",
+                     (commit & (txn.restarts > 0)).sum(dtype=I32), measuring)
+        stats = bump(stats, "txn_run_time_ticks",
+                     torch.where(commit, t - txn.start_tick, 0)
+                     .sum(dtype=I32), measuring)
+        stats = bump(stats, "txn_total_time_ticks",
+                     torch.where(commit, t - txn.first_start_tick, 0)
+                     .sum(dtype=I32), measuring)
+        stats = bump(stats, "user_abort_cnt", ua.sum(dtype=I32), measuring)
+        txn = txn._replace(status=torch.where(commit | ua, STATUS_FREE,
+                                              txn.status))
+
+        # ---- 4. access phase ----
+        active = ((txn.status == STATUS_RUNNING)
+                  | (txn.status == STATUS_WAITING)) & ~vabort
+        has_req = active & (txn.cursor < txn.n_req)
+        dec, db = plugin.access(cfg, db, txn, active)
+
+        # advance over the granted prefix; the outcome is the decision at
+        # the first non-granted requested access
+        okm = dec.grant | (ridx < txn.cursor[:, None]) \
+            | (ridx >= txn.n_req[:, None])
+        prefix = torch.cumprod(okm.to(I32), dim=1, dtype=I32)
+        new_cursor = torch.minimum(prefix.sum(dim=1, dtype=I32), txn.n_req)
+        fail_pos = torch.clamp(new_cursor, max=R - 1)[:, None]
+        at_fail = lambda m: (m & (ridx == fail_pos)).any(dim=1)
+        blocked = has_req & (new_cursor < txn.n_req)
+        wait = blocked & at_fail(dec.wait)
+        acc_fail = blocked & at_fail(dec.abort)
+        abort_now = acc_fail | vabort
+
+        cursor = torch.where(has_req & ~abort_now, new_cursor, txn.cursor)
+        status = torch.where(has_req & (new_cursor > txn.cursor),
+                             STATUS_RUNNING, txn.status)
+        status = torch.where(wait, STATUS_WAITING, status)
+        stats = bump(stats, "twopl_wait_cnt", wait.sum(dtype=I32), measuring)
+
+        # ---- 5. aborts: exponential backoff (abort_queue.cpp:26-82) ----
+        stats = bump(stats, "total_txn_abort_cnt",
+                     abort_now.sum(dtype=I32), measuring)
+        status = torch.where(abort_now, STATUS_BACKOFF, status)
+        cursor = torch.where(abort_now, 0, cursor)
+        backoff_until = torch.where(abort_now, t + _penalty(txn.restarts),
+                                    txn.backoff_until)
+        restarts = torch.where(abort_now, txn.restarts + 1, txn.restarts)
+        txn = txn._replace(status=status, cursor=cursor,
+                           backoff_until=backoff_until, restarts=restarts)
+        db = plugin.on_abort(cfg, db, txn, abort_now | ua)
+
+        stats = track_state_latencies(stats, txn, measuring)
+
+        # ts wraparound guard: rebase every timestamp once the counter
+        # passes 3 * 2^29.  The reference guards it with a data-dependent
+        # lax.cond; here it is an unconditional select (plugins get a zero
+        # shift on ticks that do not rebase), so no tick syncs the device
+        rebase = ts_counter > REBASE_AT
+        txn = txn._replace(ts=torch.where(
+            rebase, torch.clamp(txn.ts - REBASE_BY, min=1), txn.ts))
+        db = plugin.on_ts_rebase(cfg, db, torch.where(rebase, REBASE_BY, 0))
+        ts_counter = torch.where(rebase, ts_counter - REBASE_BY, ts_counter)
+
+        # static flush schedule of the write ring (see FLUSH_EVERY)
+        if (t + 1) % FLUSH_EVERY == 0:
+            flush_write_ring(data, stats)
+
+        stats = bump(stats, "measured_ticks", 1, measuring)
+        return EngineState(txn=txn, db=db, data=data, tables=state.tables,
+                           stats=stats, tick=t + 1,
+                           pool_cursor=(state.pool_cursor + n_free) % Q,
+                           ts_counter=ts_counter)
+
+    if not cfg.fused_arbitrate:
+        return tick_fn
+
+    # fused-arbitration dispatch: every eligible sort of the tick goes
+    # through the fused kernel (ops/fused.py, ops/segment.py sort_pack)
+    def tick_fused(state: EngineState) -> EngineState:
+        with seg.fused_scope(cfg):
+            return tick_fn(state)
+
+    return tick_fused
+
+
+class Engine:
+    """Single-shard scheduler on one device.  ``device`` defaults to CUDA;
+    pass ``device="cpu"`` to run on the host."""
+
+    def __init__(self, cfg: Config, pool: QueryPool | None = None,
+                 device="cuda"):
+        check_slice(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.plugin = cc_registry.get(cfg.cc_alg)
+        self.workload = wl_registry.get(cfg)
+        if pool is None:
+            pool = self.workload.gen_pool(cfg)
+        self.pool = pool
+        self.n_rows = self.workload.cc_rows(cfg)
+        self.pool_dev = _pool_to_device(pool, self.device)
+        self._tick_fn = make_tick(cfg, self.plugin, self.pool_dev,
+                                  self.workload)
+
+    def init_state(self) -> EngineState:
+        cfg, dev = self.cfg, self.device
+        B, R = cfg.batch_size, self.pool.max_req
+        return EngineState(
+            txn=TxnState.empty(B, R, A=self.pool.args.shape[1], device=dev),
+            db=self.plugin.init_db(cfg, self.n_rows, B, R, device=dev),
+            data=torch.zeros(self.n_rows, dtype=I32, device=dev),
+            tables=self.workload.init_tables(cfg, 0),
+            stats=_zeros_stats(B, R, dev),
+            tick=0,
+            pool_cursor=torch.zeros((), dtype=I32, device=dev),
+            ts_counter=torch.ones((), dtype=I32, device=dev),
+        )
+
+    def tick(self, state: EngineState) -> EngineState:
+        """One tick, without the end-of-run flush."""
+        return self._tick_fn(state)
+
+    def run(self, n_ticks: int, state: EngineState | None = None
+            ) -> EngineState:
+        """Run n_ticks ticks, then flush the write ring.  The state's
+        tensors are updated in place where the tick says so."""
+        if state is None:
+            state = self.init_state()
+        for _ in range(n_ticks):
+            state = self._tick_fn(state)
+        return self._flush_body(state)
+
+    def _flush_body(self, state: EngineState) -> EngineState:
+        """Apply the deferred write ring to the data table so host readers
+        see it up to date."""
+        flush_write_ring(state.data, state.stats)
+        return state
+
+    def summary(self, state: EngineState,
+                wall_seconds: float | None = None) -> dict:
+        """Host-side stats in the reference's [summary] vocabulary
+        (statistics/stats.cpp:1541-1575)."""
+        s = {k: v.item() for k, v in state.stats.items()
+             if not k.startswith("arr_") and k != "wr_ring_cursor"}
+        s.update({k: int(v.item()) for k, v in state.db.items()
+                  if k.endswith("_cnt") and v.dim() == 0})
+        commits = max(s["txn_cnt"], 1)
+        out = dict(s)
+        out["tput_per_tick"] = s["txn_cnt"] / max(s["measured_ticks"], 1)
+        out["abort_rate"] = s["total_txn_abort_cnt"] / (
+            s["total_txn_abort_cnt"] + commits)
+        out["avg_latency_ticks_short"] = s["txn_run_time_ticks"] / commits
+        out["avg_latency_ticks_long"] = s["txn_total_time_ticks"] / commits
+        ring = state.stats["arr_lat_short"][:LAT_SAMPLES].cpu().numpy()
+        n_valid = min(s["lat_ring_cursor"], LAT_SAMPLES)
+        out["ccl_samples"] = tuple(ring[:n_valid].tolist())
+        out["ccl_valid"] = n_valid
+        if wall_seconds is not None:
+            out["tput"] = s["txn_cnt"] / wall_seconds
+        return out
+
+    def summary_line(self, state: EngineState,
+                     wall_seconds: float | None = None,
+                     prog: bool = False) -> str:
+        """The reference's ``[summary]`` key=value line."""
+        from deneva_tpu_torch import stats as stats_mod
+        d = stats_mod.reference_summary(self.summary(state, wall_seconds),
+                                        wall_seconds)
+        return stats_mod.format_summary(d, prog=prog)
+
+
+def timed_run(engine: Engine, n_ticks: int, state: EngineState):
+    """Run n_ticks ticks and flush; returns (state, seconds per tick).  On
+    CUDA the time comes from CUDA events around the ticks; on the CPU from
+    the host clock."""
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(n_ticks):
+            state = engine.tick(state)
+        t1.record()
+        torch.cuda.synchronize(engine.device)
+        per_tick = t0.elapsed_time(t1) / 1e3 / max(n_ticks, 1)
+    else:
+        h0 = time.perf_counter()
+        for _ in range(n_ticks):
+            state = engine.tick(state)
+        per_tick = (time.perf_counter() - h0) / max(n_ticks, 1)
+    return engine._flush_body(state), per_tick

@@ -1,0 +1,121 @@
+"""The port stands alone: it imports neither jax nor deneva_tpu, asking for
+a device it cannot have raises, a config outside the ported slice raises,
+and a kernel that cannot be built raises."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from deneva_tpu_torch.config import Config  # noqa: E402
+from deneva_tpu_torch.engine.scheduler import Engine  # noqa: E402
+from deneva_tpu_torch.ops import cuda_build  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+
+MODULES = (
+    "deneva_tpu_torch", "deneva_tpu_torch.config", "deneva_tpu_torch.cells",
+    "deneva_tpu_torch.stats", "deneva_tpu_torch.__main__",
+    "deneva_tpu_torch.workloads", "deneva_tpu_torch.workloads.base",
+    "deneva_tpu_torch.workloads.ycsb", "deneva_tpu_torch.engine.state",
+    "deneva_tpu_torch.engine.scheduler", "deneva_tpu_torch.ops.segment",
+    "deneva_tpu_torch.ops.fused", "deneva_tpu_torch.ops.cuda_build",
+    "deneva_tpu_torch.cc", "deneva_tpu_torch.cc.base",
+    "deneva_tpu_torch.cc.compact", "deneva_tpu_torch.cc.twopl",
+    "deneva_tpu_torch.cc.no_wait", "deneva_tpu_torch.profile_tick",
+    "chip_smoke",
+)
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m == 'deneva_tpu' or m.startswith('deneva_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_port_sources_name_no_jax_import():
+    for path in (REPO / "deneva_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not s.startswith(("import jax", "from jax",
+                                     "import deneva_tpu ",
+                                     "from deneva_tpu ",
+                                     "from deneva_tpu.")), (path, line)
+
+
+def test_cuda_engine_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Engine(Config(batch_size=8, synth_table_size=64, req_per_query=2,
+                      query_pool_size=16))
+
+
+def test_cpu_engine_runs():
+    eng = Engine(Config(batch_size=8, synth_table_size=64, req_per_query=2,
+                        query_pool_size=16), device="cpu")
+    assert eng.device.type == "cpu"
+    assert eng.summary(eng.run(5))["measured_ticks"] == 5
+
+
+OUTSIDE = {
+    "wait_die": dict(cc_alg="WAIT_DIE"),
+    "occ": dict(cc_alg="OCC"),
+    "tpcc": dict(workload="TPCC"),
+    "read_committed": dict(isolation_level="READ_COMMITTED"),
+    "nocc_mode": dict(mode="NOCC"),
+    "sub_ticks": dict(sub_ticks=2),
+    "dense_lock_state": dict(dense_lock_state=True),
+    "commit_after_access": dict(commit_after_access=True),
+    "compact_auto": dict(compact_auto=True),
+    "compact_lanes": dict(compact_lanes=24),
+    "abort_attribution": dict(abort_attribution=True),
+    "trace_ticks": dict(trace_ticks=8),
+    "logging": dict(logging=True),
+    "heatmap": dict(heatmap_bins=16),
+    "multi_partition": dict(part_cnt=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OUTSIDE))
+def test_config_outside_the_slice_raises(case):
+    cfg = Config(batch_size=8, synth_table_size=64, req_per_query=2,
+                 query_pool_size=16, **OUTSIDE[case])
+    with pytest.raises(NotImplementedError, match="outside the ported slice"):
+        Engine(cfg, device="cpu")
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda_build.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(cuda_build, "BUILD", tmp_path)
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.load_library("fused_sort_scan")
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: str(nvcc))
+    monkeypatch.setattr(cuda_build, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        cuda_build.load_library("fused_sort_scan")
+    assert not list((tmp_path / "build").glob("*.so"))
