@@ -47,7 +47,7 @@ namespace {
 
 constexpr int kTile = 2048;       // records per block-local bitonic stage
 constexpr int kMaxCols = 24;      // MAX_OPERANDS in ops/fused.py
-constexpr int kMaxKeys = 4;       // MAX_KEYS in ops/fused.py
+constexpr int kMaxKeys = 3;       // MAX_KEYS in ops/fused.py
 constexpr int kMaxLanes = 1 << 23;  // packed entry-index limit (cc/twopl.py)
 constexpr int kScanBlock = 1024;  // lanes per block in the scan epilogue
 constexpr int kStepThreads = 256;
@@ -282,8 +282,7 @@ int dn_fused_sort_scan(void* const* ins, int n_in, int num_keys, int n,
   switch (num_keys) {
     case 1: err = sort_records<2>(in, n, P, rec, stream); break;
     case 2: err = sort_records<3>(in, n, P, rec, stream); break;
-    case 3: err = sort_records<4>(in, n, P, rec, stream); break;
-    default: err = sort_records<5>(in, n, P, rec, stream); break;
+    default: err = sort_records<4>(in, n, P, rec, stream); break;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
 

@@ -28,8 +28,8 @@ I32 = torch.int32
 #: packs 10 operands); the kernel carries up to this many columns
 MAX_OPERANDS = 24
 #: key-count ceiling of the kernel's record (keys + lane index held as one
-#: record of at most 5 words); no call site in the repo sorts by more than 3
-MAX_KEYS = 4
+#: record of at most 4 words): the most any call site in the repo sorts by
+MAX_KEYS = 3
 #: the kernel's width limit: P up to 2^23 lanes, the entry-index limit of
 #: the packed lock sort (cc/twopl.py _IDX_BITS).  Unlike the TPU kernel it
 #: has no fast-memory budget: past one block's 2048-lane tile it merges
@@ -49,8 +49,8 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
-# fallback registry: an ineligible pack is counted and warned about, never
-# silently sorted elsewhere
+# fallback registry: an ineligible CPU pack is counted and warned about,
+# never silently sorted elsewhere (on the card it raises instead)
 # ---------------------------------------------------------------------------
 
 _FALLBACKS: dict = {}
@@ -214,26 +214,38 @@ def fused_sort_scan(operands, num_keys: int):
     return sorted_ops, starts == 1, sidx
 
 
+def _ineligible(ops, num_keys: int):
+    """Why the kernel does not take this pack, or None if it does."""
+    if any(o.dim() != 1 for o in ops):
+        return "rank"
+    if any(o.dtype not in (I32, torch.bool) for o in ops):
+        return "dtype"
+    if len(ops) > MAX_OPERANDS:
+        return "operands"
+    if num_keys > MAX_KEYS:
+        return "keys"
+    if _padded_width(ops[0].shape[0]) > MAX_LANES:
+        return "width"
+    return None
+
+
 def maybe_fused_sort(cfg, operands, num_keys: int):
     """Eligibility gate for one dispatch (ops/segment.py sort_pack):
-    ``(sorted_operands, starts, start_idx)`` when the pack fits the kernel,
-    else None after recording the loud fallback.  The JAX package's
+    ``(sorted_operands, starts, start_idx)`` when the pack fits the kernel.
+    An ineligible pack raises on the card; on the CPU, where the plain
+    version runs either way, it returns None after recording the loud
+    fallback, as the JAX package's gate does.  The JAX package's
     ``fused_max_lanes`` and VMEM budget are TPU limits and are not read:
     the kernel takes any width up to ``MAX_LANES``."""
     ops = tuple(operands)
-    if any(o.dim() != 1 for o in ops):
-        return None                  # not an entry-lane sort; stay quiet
-    n = ops[0].shape[0]
-    if any(o.dtype not in (I32, torch.bool) for o in ops):
-        record_fallback(n, len(ops), "dtype")
-        return None
-    if len(ops) > MAX_OPERANDS:
-        record_fallback(n, len(ops), "operands")
-        return None
-    if num_keys > MAX_KEYS:
-        record_fallback(n, len(ops), "keys")
-        return None
-    if _padded_width(n) > MAX_LANES:
-        record_fallback(n, len(ops), "width")
-        return None
-    return fused_sort_scan(ops, num_keys)
+    reason = _ineligible(ops, num_keys)
+    if reason is None:
+        return fused_sort_scan(ops, num_keys)
+    if any(o.device.type != "cpu" for o in ops):
+        raise ValueError(f"fused_sort_scan kernel does not take this pack "
+                         f"({reason}): {len(ops)} operands, {num_keys} keys, "
+                         f"shapes {[tuple(o.shape) for o in ops]}, dtypes "
+                         f"{sorted({str(o.dtype) for o in ops})}")
+    if reason != "rank":             # not an entry-lane sort; stay quiet
+        record_fallback(ops[0].shape[0], len(ops), reason)
+    return None

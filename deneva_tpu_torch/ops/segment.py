@@ -27,14 +27,12 @@ I64 = torch.int64
 # ---------------------------------------------------------------------------
 #
 # The engine runs each tick inside ``fused_scope(cfg)``.  Inside an active
-# scope every eligible ``sort_pack`` goes through the fused sort + scan
-# kernel, which also returns the segment starts and start index of the
-# sorted primary key; ``_SCOPE_CACHE`` hands them to a ``segment_starts`` /
-# ``start_index`` call on that very tensor (keyed by identity, with a strong
-# reference held until the scope exits so ids are not reused).
+# scope every ``sort_pack`` goes through the fused sort + scan kernel.  Its
+# scan outputs (segment starts and start index of the sorted primary key)
+# are not used here: the one ported caller, twopl.arbitrate, segments on
+# ``skk >> 1``, not on the sorted key itself.
 
 _FUSED_CFG = None
-_SCOPE_CACHE: dict = {}
 
 
 @contextlib.contextmanager
@@ -42,42 +40,25 @@ def fused_scope(cfg):
     """Dispatch scope; nested scopes restore the outer config on exit."""
     global _FUSED_CFG
     prev = _FUSED_CFG
-    prev_cache = dict(_SCOPE_CACHE)
     _FUSED_CFG = cfg if getattr(cfg, "fused_arbitrate", False) else None
-    _SCOPE_CACHE.clear()
     try:
         yield
     finally:
         _FUSED_CFG = prev
-        _SCOPE_CACHE.clear()
-        _SCOPE_CACHE.update(prev_cache)
-
-
-def _cache_scan(key_arr, starts, sidx):
-    _SCOPE_CACHE[id(key_arr)] = (key_arr, starts)
-    _SCOPE_CACHE[id(starts)] = (starts, sidx)
-
-
-def _cached(arr):
-    hit = _SCOPE_CACHE.get(id(arr))
-    if hit is not None and hit[0] is arr:
-        return hit[1]
-    return None
 
 
 def sort_pack(operands, num_keys: int, is_stable: bool = False):
     """Counterpart of ``lax.sort(operands, num_keys, is_stable)``: inside an
-    active ``fused_scope`` an eligible pack runs the fused kernel;
-    otherwise the plain stable sort runs.  Both give the stable order,
-    which is a valid result for either stability mode."""
+    active ``fused_scope`` the pack runs the fused kernel (an ineligible
+    pack raises on the card, and takes the plain sort on the CPU after a
+    counted warning); otherwise the plain stable sort runs.  Both give the
+    stable order, which is a valid result for either stability mode."""
     from deneva_tpu_torch.ops import fused
     ops = tuple(operands)
     if _FUSED_CFG is not None:
         hit = fused.maybe_fused_sort(_FUSED_CFG, ops, num_keys)
         if hit is not None:
-            sorted_ops, starts, sidx = hit
-            _cache_scan(sorted_ops[0], starts, sidx)
-            return sorted_ops
+            return hit[0]
     return fused.lex_sort(ops, num_keys)
 
 
@@ -96,9 +77,6 @@ def _iota(x: torch.Tensor) -> torch.Tensor:
 
 def segment_starts(sorted_ids: torch.Tensor) -> torch.Tensor:
     """Boolean mask marking the first element of each equal-id run."""
-    hit = _cached(sorted_ids)
-    if hit is not None:
-        return hit
     out = sorted_ids != torch.roll(sorted_ids, 1)
     out[0] = True   # in place on a fresh tensor
     return out
@@ -106,9 +84,6 @@ def segment_starts(sorted_ids: torch.Tensor) -> torch.Tensor:
 
 def start_index(starts: torch.Tensor) -> torch.Tensor:
     """For each position, the index where its segment starts (cummax)."""
-    hit = _cached(starts)
-    if hit is not None:
-        return hit
     return torch.cummax(torch.where(starts, _iota(starts), 0), 0).values
 
 

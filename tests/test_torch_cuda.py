@@ -48,6 +48,24 @@ def test_kernel_matches_plain(dev, n, num_keys, n_cols):
     assert torch.equal(got[2], want[2])
 
 
+@pytest.mark.parametrize("case", ["dtype", "operands", "keys", "rank"])
+def test_gate_raises_on_ineligible_cuda_pack(dev, case):
+    # on the card an ineligible pack never falls back to the plain sort
+    col = torch.arange(16, dtype=torch.int32, device=dev)
+    ops, nk = {
+        "dtype": ((col.to(torch.float32), col), 1),
+        "operands": ((col,) * (fused.MAX_OPERANDS + 1), 1),
+        "keys": ((col,) * (fused.MAX_KEYS + 1), fused.MAX_KEYS + 1),
+        "rank": ((col.reshape(4, 4),), 1),
+    }[case]
+    fused.reset_fallbacks()
+    before = fused.LAUNCHES
+    with pytest.raises(ValueError, match=case):
+        fused.maybe_fused_sort(Config(fused_arbitrate=True), ops, nk)
+    assert fused.LAUNCHES == before
+    assert fused.fallback_snapshot()["count"] == 0
+
+
 def test_engine_cuda_matches_cpu(dev):
     cfg = Config(batch_size=64, synth_table_size=256, req_per_query=4,
                  query_pool_size=512, zipf_theta=0.9, fused_arbitrate=True)

@@ -167,15 +167,19 @@ def test_gate_fallback_is_loud_and_counted(case):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_scope_cache_hands_scans_to_segment_ops():
+def test_fused_scope_sorts_and_restores():
     k = torch.tensor([5, 1, 5, 2, 1, 1, 5, 9], dtype=torch.int32)
     v = torch.arange(8, dtype=torch.int32)
-    with tseg.fused_scope(Config(fused_arbitrate=True)):
+    cfg = Config(fused_arbitrate=True)
+    with tseg.fused_scope(cfg):
+        assert tseg._FUSED_CFG is cfg
+        with tseg.fused_scope(Config(fused_arbitrate=False)):
+            assert tseg._FUSED_CFG is None
+        assert tseg._FUSED_CFG is cfg
         (sk,), (sv,) = tseg.sort_by((k,), (v,))
         st = tseg.segment_starts(sk)
-        assert tseg._cached(sk) is st
         si = tseg.start_index(st)
-    assert not tseg._SCOPE_CACHE
+    assert tseg._FUSED_CFG is None
     np.testing.assert_array_equal(sk.numpy(), [1, 1, 1, 2, 5, 5, 5, 9])
     np.testing.assert_array_equal(sv.numpy(), [1, 4, 5, 3, 0, 2, 6, 7])
     np.testing.assert_array_equal(st.numpy(), [1, 0, 0, 1, 1, 0, 0, 1])
