@@ -6,11 +6,14 @@ Phases, each printing one line:
   1. the card's name and power limit (nvidia-smi);
   2. the build of the fused sort + scan kernel (csrc/fused_sort_scan.cu);
   3. the kernel against its plain PyTorch version on the card, bit-equal,
-     on the unit shape set and on both main-path packs, with times;
+     on the unit shape set and on both main-path packs, with the key shift
+     of 0 and of 1, with times, its launch plan (blocks, tile, merge
+     levels) and exactly 1 device kernel per call (torch.profiler);
   4. the headline cell (16M rows, B=8192, R=10, zipf 0.6, NO_WAIT,
      fused_arbitrate) on CUDA: the [summary] line, commits per tick, tick
      time from CUDA events, peak memory, and 2 kernel launches per tick
-     with no fallback;
+     with no fallback; then a short torch.profiler trace of the same
+     ticks: 2 device launches of the kernel per tick and no cummax;
   5. the same cell on the port's CPU path: summary and data equal to a
      CUDA run of the same length, and the write-count oracle.
 Then one JSON line of per-kernel numbers and the final
@@ -39,7 +42,10 @@ WINDOW_TICKS = 50
 WARMUP_TICKS = 20
 CPU_TICKS = 60
 MAIN_N = 8192 * 10           # B * R lanes of the headline cell
-UNIT_WIDTHS = (1, 2, 7, 64, 96, 128, 130)
+#: widths 1..130 as in tests/test_fused.py, and one that is not a power of
+#: two between 2 and 8 tiles of 1024 records (6 tiles: 3 merge levels)
+UNIT_WIDTHS = (1, 2, 7, 64, 96, 128, 130, 6007)
+TRACE_TICKS = 10
 
 
 def say(phase: str, msg: str) -> None:
@@ -95,37 +101,62 @@ def cuda_ms(fn, reps=50, warm=5):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps=20):
-    """Device time of one call of `fn`: the sum of its kernels' device
-    time in a torch.profiler trace of `reps` calls.  Unlike `cuda_ms`, it
-    leaves out the host's gaps between launches."""
-    from deneva_tpu_torch.profile_tick import device_kernels, device_us
+def sort_launches(kernels):
+    """Launches of the fused kernel among a trace's device kernels."""
+    from deneva_tpu_torch.profile_tick import SORT_KERNELS
+    return sum(e.count for e in kernels
+               if any(k in e.key for k in SORT_KERNELS))
+
+
+def trace(fn, reps, expect_sort=None):
+    """The device kernels (``key_averages()`` rows) of `reps` calls of
+    `fn` in one torch.profiler trace.  The profiler has been seen to drop
+    a few kernel events of a trace on an H100 host; when `expect_sort` is
+    given, a trace with fewer fused-kernel launches than that is taken
+    again, up to three times."""
+    from deneva_tpu_torch.profile_tick import device_kernels
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(device_us(e) for e in device_kernels(prof)) / reps / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        if expect_sort is None or sort_launches(kernels) >= expect_sort:
+            break
+    return kernels
 
 
-def compare(fused, cols, num_keys):
+def device_ms(fn, reps=20, expect_sort=None):
+    """Device time of one call of `fn` and the device kernels it runs: the
+    sums over its kernels in a torch.profiler trace of `reps` calls.
+    Unlike `cuda_ms`, the time leaves out the host's gaps between
+    launches."""
+    from deneva_tpu_torch.profile_tick import device_us
+    kernels = trace(fn, reps, expect_sort)
+    return (sum(device_us(e) for e in kernels) / reps / 1e3,
+            sum(e.count for e in kernels) / reps)
+
+
+def compare(fused, cols, num_keys, shift=0):
     """Kernel against plain on the same CUDA tensors; returns the largest
     absolute difference over every output (they are integers: 0 means
     bit-equal).  Restores the launch counters it moves."""
     before = (fused.LAUNCHES, dict(fused.LAUNCHES_BY_PACK))
-    got_cols, got_st, got_si = fused.fused_sort_scan(cols, num_keys)
+    got_cols, got_st, got_si = fused.fused_sort_scan(cols, num_keys, shift)
     conv = [c.to(torch.int32) for c in cols]
-    want_cols, want_st, want_si = fused.fused_sort_scan_plain(conv, num_keys)
+    want_cols, want_st, want_si = fused.fused_sort_scan_plain(
+        conv, num_keys, shift)
     want_cols = [w == 1 if c.dtype == torch.bool else w
                  for w, c in zip(want_cols, cols)]
     torch.cuda.synchronize()
     fused.LAUNCHES, fused.LAUNCHES_BY_PACK = before[0], before[1]
     err = 0
     for g, w in zip(list(got_cols) + [got_st, got_si],
-                    list(want_cols) + [want_st == 1, want_si]):
+                    list(want_cols) + [want_st, want_si]):
         if g.dtype != w.dtype or g.shape != w.shape:
             raise AssertionError(f"kernel output {g.dtype}{tuple(g.shape)} "
                                  f"!= plain {w.dtype}{tuple(w.shape)}")
@@ -136,9 +167,9 @@ def compare(fused, cols, num_keys):
 
 def bound_ms(n, n_in, num_keys):
     """Least time for the function on this card: inputs read once and
-    outputs (sorted columns, starts, start index) written once, against
-    n*log2(n) comparisons of num_keys+1 words."""
-    bytes_ = 4 * n * (n_in + n_in + 2)
+    outputs (sorted int32 columns, bool starts, int32 start index) written
+    once, against n*log2(n) comparisons of num_keys+1 words."""
+    bytes_ = 4 * n * (n_in + n_in + 1) + n
     ops = n * max(1.0, math.log2(n)) * (num_keys + 1)
     t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_SCALAR_OPS_PER_S * 1e3
@@ -167,11 +198,13 @@ def phase_build(fused):
 
 
 def phase_kernel(fused, dev):
-    # unit shape set: widths 1..130, all-tie stability, sentinel keys,
-    # bool payloads, scan outputs
+    # unit shape set: widths 1..6007, all-tie stability, sentinel keys,
+    # bool payloads, scan outputs of the key and of the key >> 1
     errs = []
     for n in UNIT_WIDTHS:
-        errs.append(compare(fused, rand_pack(n, 2, 3, n, dev), 2))
+        pack2 = rand_pack(n, 2, 3, n, dev)
+        errs.append(compare(fused, pack2, 2))
+        errs.append(compare(fused, pack2, 2, shift=1))
         errs.append(compare(fused, rand_pack(n, 1, 1, 100 + n, dev), 1))
     tie = [torch.zeros(37, dtype=torch.int32, device=dev),
            torch.arange(37, dtype=torch.int32, device=dev) * 3]
@@ -180,37 +213,84 @@ def phase_kernel(fused, dev):
                          device=dev),
             torch.arange(5, dtype=torch.int32, device=dev)]
     errs.append(compare(fused, sent, 1))
+    errs.append(compare(fused, sent, 1, shift=1))
     if max(errs) != 0:
         raise AssertionError(f"kernel != plain on the unit shape set: {errs}")
-    say("kernel", f"unit shape set: {len(errs)} packs bit-equal "
-        "(tolerance: exact, integer outputs)")
+    say("kernel", f"unit shape set: {len(errs)} packs bit-equal, shift 0 "
+        "and 1 (tolerance: exact, integer outputs)")
 
     lock, unperm = main_path_packs(dev)
     rows = {}
-    for name, cols, nk, lib_fn in (
-            ("lock sort (3 columns, 2 keys)", lock, 2,
+    for name, cols, nk, shift, lib_fn in (
+            ("lock sort (3 columns, 2 keys)", lock, 2, 1,
              lambda: torch.sort((lock[0].to(torch.int64) << 32)
                                 | lock[1].to(torch.int64), stable=True)),
-            ("unpermute (2 columns, 1 key)", unperm, 1,
+            ("unpermute (2 columns, 1 key)", unperm, 1, 0,
              lambda: torch.sort(unperm[0], stable=True))):
-        err = compare(fused, cols, nk)
-        if err != 0:
-            raise AssertionError(f"kernel != plain on the {name}: {err}")
+        for sh in sorted({0, shift}):
+            err = compare(fused, cols, nk, sh)
+            if err != 0:
+                raise AssertionError(
+                    f"kernel != plain on the {name}, shift {sh}: {err}")
+        plan = fused.launch_plan(nk, MAIN_N)
         before = (fused.LAUNCHES, dict(fused.LAUNCHES_BY_PACK))
-        ms = cuda_ms(lambda: fused.fused_sort_scan(cols, nk))
-        dev_ms = device_ms(lambda: fused.fused_sort_scan(cols, nk))
+        call = lambda: fused.fused_sort_scan(cols, nk, shift)
+        ms = cuda_ms(call)
+        dev_ms, dev_launches = device_ms(call, expect_sort=20)
         fused.LAUNCHES, fused.LAUNCHES_BY_PACK = before[0], before[1]
-        plain_ms = cuda_ms(lambda: fused.fused_sort_scan_plain(cols, nk))
+        if dev_launches != 1:
+            raise AssertionError(f"{name}: {dev_launches} device kernels "
+                                 "per call, expected 1")
+        phases = fused.phase_us(cols, nk, shift)
+        plain_ms = cuda_ms(lambda: fused.fused_sort_scan_plain(cols, nk,
+                                                               shift))
         library_ms = cuda_ms(lib_fn)
+        library_dev_ms, _ = device_ms(lib_fn)
         bms, by = bound_ms(MAIN_N, len(cols), nk)
-        rows[(len(cols), nk)] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                     library_ms=library_ms, bound_ms=bms,
-                                     bound_by=by)
-        say("kernel", f"{name} n={MAIN_N}: bit-equal, kernel {ms:.4f} ms "
-            f"per call ({dev_ms:.4f} ms of it on the device, torch.profiler),"
-            f" plain {plain_ms:.4f} ms, torch.sort {library_ms:.4f} ms, "
-            f"bound {bms:.5f} ms ({by})")
+        rows[(len(cols), nk)] = dict(
+            err=err, ms=ms, device_ms=dev_ms, device_launches=dev_launches,
+            plain_ms=plain_ms, library_ms=library_ms,
+            library_device_ms=library_dev_ms, bound_ms=bms, bound_by=by)
+        say("kernel", f"{name} n={MAIN_N} shift={shift}: launch plan "
+            f"grid={plan['grid']} blocks x {plan['threads']} threads, tile="
+            f"{plan['tile']} records ({plan['tiles']} tiles), merge "
+            f"levels={plan['levels']}, chunk={plan['chunk']}")
+        say("kernel", f"{name}: bit-equal, kernel {ms:.4f} ms per call "
+            f"({dev_ms:.4f} ms of it on the device in {dev_launches:g} "
+            f"device kernel per call, torch.profiler), plain "
+            f"{plain_ms:.4f} ms, torch.sort {library_ms:.4f} ms "
+            f"({library_dev_ms:.4f} ms on the device), bound {bms:.5f} ms "
+            f"({by})")
+        say("kernel", f"{name}: phases of one call (block 0's SM clock at "
+            f"{plan['clock_khz'] / 1e3:.0f} MHz): " + ", ".join(
+                f"{k} {us:.2f} us" for k, us in phases))
     return rows
+
+
+def phase_trace(eng, state):
+    """A torch.profiler trace of TRACE_TICKS headline ticks: the kernel's
+    device launches per tick and the cummax kernels left in the tick."""
+    from deneva_tpu_torch.profile_tick import CUMMAX_KERNELS, device_us
+    box = [state]
+
+    def tick():
+        box[0] = eng.tick(box[0])
+
+    kernels = trace(tick, TRACE_TICKS, expect_sort=2 * TRACE_TICKS)
+    per = lambda rows: sum(e.count for e in rows) / TRACE_TICKS
+    sort_per_tick = sort_launches(kernels) / TRACE_TICKS
+    cummax = [e for e in kernels if any(k in e.key for k in CUMMAX_KERNELS)]
+    busy = sum(device_us(e) for e in kernels) / TRACE_TICKS
+    say("trace", f"{TRACE_TICKS} headline ticks (torch.profiler): "
+        f"{per(kernels):.1f} device launches per tick, device busy "
+        f"{busy:.1f} us per tick, fused kernel {sort_per_tick:g} launches "
+        f"per tick, cummax kernels {per(cummax):g} per tick")
+    if sort_per_tick != 2:
+        raise AssertionError(f"{sort_per_tick} fused kernel launches per "
+                             "traced tick, expected 2")
+    if cummax:
+        raise AssertionError("the headline tick still runs torch.cummax: "
+                             f"{[e.key for e in cummax]}")
 
 
 def phase_headline(cells, Engine, timed_run, fused, dev):
@@ -254,6 +334,7 @@ def phase_headline(cells, Engine, timed_run, fused, dev):
         raise AssertionError("data.sum() != write_cnt on the CUDA run")
     if not s["txn_cnt"] > 0 or not math.isfinite(tick_ms):
         raise AssertionError("the headline run committed nothing")
+    phase_trace(eng, state)
     return by_pack
 
 
@@ -309,6 +390,8 @@ def main() -> int:
             "source": "deneva_tpu_torch/csrc/fused_sort_scan.cu",
             "replaces": "deneva_tpu/ops/fused.py:122",
             "launches": by_pack.get((n_in, nk), 0),
+            "device_launches_per_call": r["device_launches"],
+            "device_ms": r["device_ms"],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

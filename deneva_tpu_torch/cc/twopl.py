@@ -47,32 +47,29 @@ def arbitrate(ent: Entries, policy: str):
                | (ent.held.to(I32) << (_IDX_BITS + 1))
                | (ent.req.to(I32) << (_IDX_BITS + 2)))
 
-    skk, sts, spay = seg.sort_pack((keykind, ent.ts, payload), num_keys=2,
-                                   is_stable=False)
+    # segments are rows (held and requested lanes together): the starts and
+    # start index of the sorted row, keykind >> 1, come with the sort
+    (skk, sts, spay), starts, sidx = seg.sort_pack_scan(
+        (keykind, ent.ts, payload), num_keys=2, shift=1)
     s_iw = (spay >> _IDX_BITS) & 1 == 1
     s_held = (spay >> (_IDX_BITS + 1)) & 1 == 1
     s_req = (spay >> (_IDX_BITS + 2)) & 1 == 1
     s_idx = spay & _IDX_MASK
-    # segments are rows (held and requested lanes together), so they key on
-    # srow, not on the kernel's starts of skk
-    srow = skk >> 1
-    s_live = srow != _DEAD_ROW
-
-    starts = seg.segment_starts(srow)
-    pos = seg.pos_in_segment(starts)
+    s_live = skk < 2 * _DEAD_ROW          # (skk >> 1) != _DEAD_ROW
+    pos = torch.arange(n, dtype=I32, device=skk.device) - sidx
 
     # a write only takes effect at segment position 0, and a held X lock
     # is necessarily there too: "conflicting lock earlier in order" ==
     # "a write at pos 0 or a held write before me"
     w_blocks = s_iw & s_live & (s_held | (pos == 0))
-    eff_w_before = seg.seg_any_before(w_blocks, starts)
+    eff_w_before = seg.seg_any_before(w_blocks, starts, sidx)
     s_grant = s_req & torch.where(s_iw, pos == 0, ~eff_w_before)
     s_fail = s_req & ~s_grant
     if policy == "NO_WAIT":
         s_wait = torch.zeros_like(s_fail)
         s_abort = s_fail
     elif policy == "WAIT_DIE":
-        granted_before = seg.seg_any_before(s_grant, starts)
+        granted_before = seg.seg_any_before(s_grant, starts, sidx)
         min_held_ts = seg.seg_min_where(sts, s_held, starts, BIG_TS)
         canwait = ~granted_before & (sts < min_held_ts)
         s_wait = s_fail & canwait

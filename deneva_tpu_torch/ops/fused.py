@@ -7,7 +7,11 @@ The kernel replaces the JAX package's Pallas kernel
 columns lexicographically by the first ``num_keys`` of them with the lane
 index as the final key -- exactly the stable order, which is a valid
 result for the stable and the unstable call sites alike -- and both return
-the segment-start mask and start index of the sorted primary key.
+the segment-start mask and start index of the sorted primary key.  The port
+adds a ``shift``: the scan outputs are then those of the sorted primary key
+shifted right by ``shift``, so that a caller whose segments are a prefix of
+the key's bits (twopl.arbitrate's rows, ``keykind >> 1``) takes them from
+the kernel.
 
 Dispatch is by device, never by failure: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel (which raises if it cannot build or
@@ -30,9 +34,9 @@ MAX_OPERANDS = 24
 #: key-count ceiling of the kernel's record (keys + lane index held as one
 #: record of at most 4 words): the most any call site in the repo sorts by
 MAX_KEYS = 3
-#: the kernel's width limit: P up to 2^23 lanes, the entry-index limit of
+#: the kernel's width limit: up to 2^23 lanes, the entry-index limit of
 #: the packed lock sort (cc/twopl.py _IDX_BITS).  Unlike the TPU kernel it
-#: has no fast-memory budget: past one block's 2048-lane tile it merges
+#: has no fast-memory budget: past one block's 1024-lane tile it merges
 #: through device memory, so any width up to this limit is eligible.
 MAX_LANES = 1 << 23
 
@@ -85,10 +89,6 @@ def reset_fallbacks() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _padded_width(n: int) -> int:
-    return 1 << max(1, (n - 1).bit_length())
-
-
 def _stable_order(keys) -> torch.Tensor:
     """Permutation that sorts lexicographically by `keys`, ties broken by
     lane index: stable sorts from the least significant key up."""
@@ -106,13 +106,14 @@ def lex_sort(operands, num_keys: int) -> tuple:
     return tuple(o[perm] for o in ops)
 
 
-def fused_sort_scan_plain(operands, num_keys: int):
-    """The kernel's function in plain PyTorch, on int32 columns:
-    ``(sorted_columns, starts, start_index)``, starts as int32 0/1."""
+def fused_sort_scan_plain(operands, num_keys: int, shift: int = 0):
+    """The kernel's function in plain PyTorch, on integer columns:
+    ``(sorted_columns, starts, start_index)``, where starts (bool) and the
+    start index are those of ``sorted_columns[0] >> shift``."""
     from deneva_tpu_torch.ops import segment as seg
     srt = lex_sort(operands, num_keys)
-    starts = seg.segment_starts(srt[0])
-    return srt, starts.to(I32), seg.start_index(starts)
+    starts = seg.segment_starts(srt[0] >> shift if shift else srt[0])
+    return srt, starts, seg.start_index(starts)
 
 
 # ---------------------------------------------------------------------------
@@ -124,14 +125,16 @@ def _lib():
     from deneva_tpu_torch.ops.cuda_build import load_library
     lib, _ = load_library("fused_sort_scan")
     if not getattr(lib, "_dn_bound", False):
-        vp = ctypes.c_void_p
+        vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.dn_fused_sort_scan.argtypes = [
-            ctypes.POINTER(vp), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.POINTER(vp), vp, vp, vp, vp]
-        lib.dn_fused_sort_scan.restype = ctypes.c_int
-        lib.dn_scratch_words.argtypes = [ctypes.c_int] * 3
+            ctypes.POINTER(vp), ci, ci, ci, ci, ctypes.POINTER(vp), vp, vp,
+            vp, vp, vp]
+        lib.dn_fused_sort_scan.restype = ci
+        lib.dn_scratch_words.argtypes = [ci, ci]
         lib.dn_scratch_words.restype = ctypes.c_longlong
-        lib.dn_error_string.argtypes = [ctypes.c_int]
+        lib.dn_launch_plan.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.dn_launch_plan.restype = ci
+        lib.dn_error_string.argtypes = [ci]
         lib.dn_error_string.restype = ctypes.c_char_p
         lib._dn_bound = True
     return lib
@@ -145,15 +148,62 @@ def build() -> dict:
     return load_library("fused_sort_scan")[1]
 
 
-def _check_cuda_pack(cols, num_keys: int) -> None:
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"fused_sort_scan {what} failed: "
+                           + lib.dn_error_string(rc).decode())
+
+
+def launch_plan(num_keys: int, n: int) -> dict:
+    """The one cooperative launch a call of this shape makes on the current
+    CUDA device: blocks and threads per block, records per tile, merge
+    levels, outputs per merge chunk, the tiles each block sorts at most,
+    and the SM clock in kHz."""
+    lib = _lib()
+    plan = (ctypes.c_int * 6)()
+    _raise_on(lib, lib.dn_launch_plan(num_keys, n, plan), "launch plan")
+    grid, tile, levels, chunk, clock_khz, threads = plan
+    tiles = -(-n // tile)
+    return {"grid": grid, "threads": threads, "tile": tile,
+            "levels": levels, "chunk": chunk, "tiles": tiles,
+            "tiles_per_block": -(-tiles // grid), "clock_khz": clock_khz}
+
+
+def phase_us(operands, num_keys: int, shift: int = 0) -> list:
+    """One kernel call on CUDA ``operands`` that also reads block 0's SM
+    clock after each grid barrier: ``[(phase, microseconds), ...]`` for the
+    tile sort, each merge level (the last with the epilogue fused in) and
+    the start-index carry, at the SM clock rate the device reports.
+    Counts no launch."""
+    global LAUNCHES
+    cols = [o.contiguous() for o in operands]
+    plan = launch_plan(num_keys, cols[0].shape[0])
+    levels = plan["levels"]
+    clocks = torch.zeros(levels + 3, dtype=torch.int64,
+                         device=cols[0].device)
+    before = (LAUNCHES, dict(LAUNCHES_BY_PACK))
+    _fused_sort_scan_cuda(cols, num_keys, shift, clocks)
+    LAUNCHES = before[0]
+    LAUNCHES_BY_PACK.clear()
+    LAUNCHES_BY_PACK.update(before[1])
+    cycles = torch.diff(clocks).tolist()
+    names = ["tile sort"] + [f"merge level {i + 1}" for i in range(levels)]
+    names[-1] += " + epilogue"
+    return [(name, c / plan["clock_khz"] * 1e3)
+            for name, c in zip(names + ["carry"], cycles)]
+
+
+def _check_cuda_pack(cols, num_keys: int, shift: int) -> None:
     dev = cols[0].device
     n = cols[0].shape[0]
     if not 1 <= num_keys <= min(MAX_KEYS, len(cols)):
         raise ValueError(f"num_keys={num_keys} outside 1..{MAX_KEYS}")
     if len(cols) > MAX_OPERANDS:
         raise ValueError(f"{len(cols)} columns > MAX_OPERANDS")
-    if n < 1 or _padded_width(n) > MAX_LANES:
+    if not 1 <= n <= MAX_LANES:
         raise ValueError(f"width {n} outside 1..{MAX_LANES}")
+    if not 0 <= shift <= 31:
+        raise ValueError(f"shift={shift} outside 0..31")
     for c in cols:
         if c.device != dev or c.dtype != I32 or c.dim() != 1 \
                 or c.shape[0] != n or not c.is_contiguous():
@@ -163,55 +213,54 @@ def _check_cuda_pack(cols, num_keys: int) -> None:
                 f"{tuple(c.shape)} on {c.device}")
 
 
-def _fused_sort_scan_cuda(cols, num_keys: int):
+def _fused_sort_scan_cuda(cols, num_keys: int, shift: int, clocks=None):
     global LAUNCHES
-    _check_cuda_pack(cols, num_keys)
+    _check_cuda_pack(cols, num_keys, shift)
     lib = _lib()
     dev = cols[0].device
     n = cols[0].shape[0]
-    P = _padded_width(n)
     outs = [torch.empty(n, dtype=I32, device=dev) for _ in cols]
-    starts = torch.empty(n, dtype=I32, device=dev)
+    starts = torch.empty(n, dtype=torch.bool, device=dev)
     sidx = torch.empty(n, dtype=I32, device=dev)
-    scratch = torch.empty(lib.dn_scratch_words(num_keys, n, P), dtype=I32,
+    scratch = torch.empty(lib.dn_scratch_words(num_keys, n), dtype=I32,
                           device=dev)
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-    # the launches are asynchronous on the current stream; the caching
+    # the launch is asynchronous on the current stream; the caching
     # allocator reuses the scratch and the inputs only for work queued on
-    # that stream after them, so they need no reference past this call
+    # that stream after it, so they need no reference past this call
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dn_fused_sort_scan(
-            ptrs(cols), len(cols), num_keys, n, P, ptrs(outs),
-            starts.data_ptr(), sidx.data_ptr(), scratch.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("fused_sort_scan kernel launch failed: "
-                           + lib.dn_error_string(rc).decode())
+            ptrs(cols), len(cols), num_keys, n, shift, ptrs(outs),
+            starts.data_ptr(), sidx.data_ptr(), scratch.data_ptr(),
+            None if clocks is None else clocks.data_ptr(), stream)
+    _raise_on(lib, rc, "kernel launch")
     LAUNCHES += 1
     pack = (len(cols), num_keys)
     LAUNCHES_BY_PACK[pack] = LAUNCHES_BY_PACK.get(pack, 0) + 1
     return tuple(outs), starts, sidx
 
 
-def fused_sort_scan(operands, num_keys: int):
+def fused_sort_scan(operands, num_keys: int, shift: int = 0):
     """Sort 1-D ``operands`` lexicographically by the first ``num_keys``
     (stable: the lane index is the implicit final key) and return
     ``(sorted_operands, segment_starts, start_index)`` of the sorted
-    primary key.  Booleans ride as int32 and convert back.  CPU tensors
-    take the plain version; CUDA tensors the kernel."""
+    primary key shifted right by ``shift`` (arithmetic; 0 is the key
+    itself).  Booleans ride as int32 and convert back.  CPU tensors take
+    the plain version; CUDA tensors the kernel."""
     ops = tuple(operands)
     cols = [o.to(I32) if o.dtype == torch.bool else o for o in ops]
     devices = {o.device.type for o in ops}
     if devices == {"cpu"}:
-        srt, starts, sidx = fused_sort_scan_plain(cols, num_keys)
+        srt, starts, sidx = fused_sort_scan_plain(cols, num_keys, shift)
     elif devices == {"cuda"}:
         srt, starts, sidx = _fused_sort_scan_cuda(
-            [c.contiguous() for c in cols], num_keys)
+            [c.contiguous() for c in cols], num_keys, shift)
     else:
         raise ValueError(f"fused_sort_scan: operands on {sorted(devices)}")
     sorted_ops = tuple(o == 1 if orig.dtype == torch.bool else o
                        for o, orig in zip(srt, ops))
-    return sorted_ops, starts == 1, sidx
+    return sorted_ops, starts, sidx
 
 
 def _ineligible(ops, num_keys: int):
@@ -224,23 +273,23 @@ def _ineligible(ops, num_keys: int):
         return "operands"
     if num_keys > MAX_KEYS:
         return "keys"
-    if _padded_width(ops[0].shape[0]) > MAX_LANES:
+    if ops[0].shape[0] > MAX_LANES:
         return "width"
     return None
 
 
-def maybe_fused_sort(cfg, operands, num_keys: int):
-    """Eligibility gate for one dispatch (ops/segment.py sort_pack):
-    ``(sorted_operands, starts, start_idx)`` when the pack fits the kernel.
-    An ineligible pack raises on the card; on the CPU, where the plain
-    version runs either way, it returns None after recording the loud
-    fallback, as the JAX package's gate does.  The JAX package's
-    ``fused_max_lanes`` and VMEM budget are TPU limits and are not read:
-    the kernel takes any width up to ``MAX_LANES``."""
+def maybe_fused_sort(cfg, operands, num_keys: int, shift: int = 0):
+    """Eligibility gate for one dispatch (ops/segment.py sort_pack and
+    sort_pack_scan): ``(sorted_operands, starts, start_idx)`` when the pack
+    fits the kernel.  An ineligible pack raises on the card; on the CPU,
+    where the plain version runs either way, it returns None after
+    recording the loud fallback, as the JAX package's gate does.  The JAX
+    package's ``fused_max_lanes`` and VMEM budget are TPU limits and are
+    not read: the kernel takes any width up to ``MAX_LANES``."""
     ops = tuple(operands)
     reason = _ineligible(ops, num_keys)
     if reason is None:
-        return fused_sort_scan(ops, num_keys)
+        return fused_sort_scan(ops, num_keys, shift)
     if any(o.device.type != "cpu" for o in ops):
         raise ValueError(f"fused_sort_scan kernel does not take this pack "
                          f"({reason}): {len(ops)} operands, {num_keys} keys, "

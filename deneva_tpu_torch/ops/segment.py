@@ -27,10 +27,10 @@ I64 = torch.int64
 # ---------------------------------------------------------------------------
 #
 # The engine runs each tick inside ``fused_scope(cfg)``.  Inside an active
-# scope every ``sort_pack`` goes through the fused sort + scan kernel.  Its
-# scan outputs (segment starts and start index of the sorted primary key)
-# are not used here: the one ported caller, twopl.arbitrate, segments on
-# ``skk >> 1``, not on the sorted key itself.
+# scope every ``sort_pack`` and ``sort_pack_scan`` goes through the fused
+# sort + scan kernel.  ``sort_pack_scan`` also returns the kernel's scan
+# outputs: the segment starts and start index of the sorted primary key
+# shifted right by ``shift`` (twopl.arbitrate segments on ``keykind >> 1``).
 
 _FUSED_CFG = None
 
@@ -60,6 +60,21 @@ def sort_pack(operands, num_keys: int, is_stable: bool = False):
         if hit is not None:
             return hit[0]
     return fused.lex_sort(ops, num_keys)
+
+
+def sort_pack_scan(operands, num_keys: int, shift: int = 0):
+    """``sort_pack`` plus the scans of its sorted primary key:
+    ``(sorted, starts, start_index)``, the last two those of
+    ``sorted[0] >> shift``.  Inside an active ``fused_scope`` all three
+    come from the fused kernel; otherwise from the plain sort,
+    ``segment_starts`` and ``start_index``."""
+    from deneva_tpu_torch.ops import fused
+    ops = tuple(operands)
+    if _FUSED_CFG is not None:
+        hit = fused.maybe_fused_sort(_FUSED_CFG, ops, num_keys, shift)
+        if hit is not None:
+            return hit
+    return fused.fused_sort_scan_plain(ops, num_keys, shift)
 
 
 def sort_by(keys: tuple, payload: tuple):
@@ -96,18 +111,24 @@ def pos_in_segment(starts: torch.Tensor) -> torch.Tensor:
     return _iota(starts) - start_index(starts)
 
 
-def seg_cumsum_exclusive(x: torch.Tensor, starts: torch.Tensor):
+def seg_cumsum_exclusive(x: torch.Tensor, starts: torch.Tensor,
+                         sidx: Optional[torch.Tensor] = None):
     """Per-segment exclusive prefix sum (count of `x` strictly before me).
     Requires x >= 0: the global exclusive sum is then non-decreasing, and
-    its value at my segment start is a cummax over start-masked values."""
+    its value at my segment start is a cummax over start-masked values, or,
+    given the start index ``sidx``, a gather at it."""
     excl = torch.cumsum(x, 0, dtype=x.dtype) - x
-    start_excl = torch.cummax(torch.where(starts, excl, 0), 0).values
+    if sidx is None:
+        start_excl = torch.cummax(torch.where(starts, excl, 0), 0).values
+    else:
+        start_excl = excl.index_select(0, sidx)
     return excl - start_excl
 
 
-def seg_any_before(mask: torch.Tensor, starts: torch.Tensor):
+def seg_any_before(mask: torch.Tensor, starts: torch.Tensor,
+                   sidx: Optional[torch.Tensor] = None):
     """True where some earlier element in my segment has `mask` set."""
-    return seg_cumsum_exclusive(mask.to(I32), starts) > 0
+    return seg_cumsum_exclusive(mask.to(I32), starts, sidx) > 0
 
 
 def _int_bounds(dtype):

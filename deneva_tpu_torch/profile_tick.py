@@ -5,9 +5,10 @@
 Runs the cell's warm-up, then times ``--ticks`` ticks with CUDA events
 (no profiler attached), then traces the same number of ticks with
 ``torch.profiler`` and reports, per tick: device time by kernel, the
-share of the fused sort + scan kernel, kernel launches, and the device's
-idle share (1 - device busy time / tick time).  ``--table PATH`` writes the
-profiler's full table.  Needs a CUDA device.
+share and launches of the fused sort + scan kernel, the launches of
+``torch.cummax``, kernel launches, and the device's idle share (1 - device
+busy time / tick time).  ``--table PATH`` writes the profiler's full
+table.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ import torch
 from deneva_tpu_torch import cells
 from deneva_tpu_torch.engine.scheduler import Engine, timed_run
 
-#: kernel names of csrc/fused_sort_scan.cu
-SORT_KERNELS = ("block_sort", "global_step", "block_merge", "gather",
-                "starts_scan", "carry_scan", "carry_apply")
+#: kernel name of csrc/fused_sort_scan.cu
+SORT_KERNELS = ("fused_sort_scan_kernel",)
+#: device kernels of torch.cummax
+CUMMAX_KERNELS = ("cummax", "scan_innermost_dim_with_indices",
+                  "scan_outer_dim_with_indices")
 
 
 def device_us(evt) -> float:
@@ -76,8 +79,9 @@ def main(argv=None) -> int:
     kernels = device_kernels(prof)
     busy_us = sum(device_us(e) for e in kernels) / args.ticks
     launches = sum(e.count for e in kernels) / args.ticks
-    sort_us = sum(device_us(e) for e in kernels
-                  if any(k in e.key for k in SORT_KERNELS)) / args.ticks
+    sort_rows = [e for e in kernels if any(k in e.key for k in SORT_KERNELS)]
+    sort_us = sum(device_us(e) for e in sort_rows) / args.ticks
+    cummax = [e for e in kernels if any(k in e.key for k in CUMMAX_KERNELS)]
     tick_us = per_tick * 1e6
     top = sorted(kernels, key=device_us, reverse=True)[:12]
     for e in top:
@@ -92,6 +96,9 @@ def main(argv=None) -> int:
         "device_idle_share": (1.0 - busy_us / tick_us) if busy_us else None,
         "kernel_launches_per_tick": launches,
         "fused_sort_scan_us_per_tick": sort_us,
+        "fused_sort_scan_launches_per_tick":
+            sum(e.count for e in sort_rows) / args.ticks,
+        "cummax_launches_per_tick": sum(e.count for e in cummax) / args.ticks,
         "fused_sort_scan_share_of_busy": sort_us / busy_us if busy_us
         else None,
     }

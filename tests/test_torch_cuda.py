@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 from deneva_tpu_torch.config import Config  # noqa: E402
 from deneva_tpu_torch.engine.scheduler import Engine  # noqa: E402
 from deneva_tpu_torch.ops import fused  # noqa: E402
+from deneva_tpu_torch.profile_tick import device_kernels  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -27,25 +28,73 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n,num_keys,n_cols", [
-    (1, 1, 2), (7, 2, 4), (130, 2, 5), (2048, 1, 2), (2049, 3, 4),
-    (81920, 2, 3), (81920, 1, 2),
-    # more than 1024 scan blocks: the cross-block carry runs in chunks
-    (2_100_000, 1, 2)])
-def test_kernel_matches_plain(dev, n, num_keys, n_cols):
+def _cols(dev, n, num_keys, n_cols, hi=3):
     rng = np.random.default_rng(n + num_keys)
-    cols = [torch.from_numpy(rng.integers(-3, 3, n).astype(np.int32)).to(dev)
-            for _ in range(num_keys)]
+    cols = [torch.from_numpy(rng.integers(-hi, hi, n).astype(np.int32))
+            .to(dev) for _ in range(num_keys)]
     cols += [torch.from_numpy(rng.integers(0, 1 << 30, n).astype(np.int32))
              .to(dev) for _ in range(n_cols - num_keys)]
+    return cols
+
+
+def _check(cols, num_keys, shift=0):
     before = fused.LAUNCHES
-    got = fused.fused_sort_scan(cols, num_keys)
+    got = fused.fused_sort_scan(cols, num_keys, shift)
     assert fused.LAUNCHES == before + 1
-    want = fused.fused_sort_scan_plain(cols, num_keys)
+    want = fused.fused_sort_scan_plain(cols, num_keys, shift)
     for g, w in zip(got[0], want[0]):
         assert torch.equal(g, w)
-    assert torch.equal(got[1], want[1] == 1)
+    assert torch.equal(got[1], want[1])
     assert torch.equal(got[2], want[2])
+
+
+def _device_launches(fn) -> int:
+    """Kernels the card ran for one call of `fn` (torch.profiler).  A trace
+    that lost the call's kernel event, as the profiler has been seen to do
+    on the GPU host, is taken again, up to three times."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        count = sum(e.count for e in device_kernels(prof))
+        if count:
+            break
+    return count
+
+
+@pytest.mark.parametrize("n,num_keys,n_cols", [
+    (1, 1, 2), (7, 2, 4), (130, 2, 5), (2047, 2, 3), (2048, 1, 2),
+    (2049, 3, 4), (81920, 2, 3), (81920, 1, 2),
+    # more tiles than resident blocks: blocks sort several tiles
+    (2_100_000, 1, 2)])
+def test_kernel_matches_plain(dev, n, num_keys, n_cols):
+    _check(_cols(dev, n, num_keys, n_cols), num_keys)
+
+
+@pytest.mark.parametrize("n,num_keys,n_cols", [
+    (1, 1, 2), (130, 2, 3), (2049, 2, 3), (6007, 3, 4), (81920, 2, 3),
+    (2_100_000, 2, 3)])
+def test_kernel_shift_matches_plain(dev, n, num_keys, n_cols):
+    # odd and even keys share a segment of key >> 1
+    _check(_cols(dev, n, num_keys, n_cols, hi=9), num_keys, shift=1)
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2049, 81920, 2_100_000])
+def test_one_device_launch_per_call(dev, n):
+    cols = _cols(dev, n, 2, 3)
+    assert _device_launches(lambda: fused.fused_sort_scan(cols, 2, 1)) == 1
+
+
+def test_grid_with_several_tiles_per_block(dev):
+    n = 2_100_000
+    plan = fused.launch_plan(2, n)
+    assert plan["tiles_per_block"] > 1, plan
+    assert plan["levels"] == (plan["tiles"] - 1).bit_length()
+    _check(_cols(dev, n, 2, 3), 2)
 
 
 @pytest.mark.parametrize("case", ["dtype", "operands", "keys", "rank"])

@@ -40,9 +40,9 @@ def _rand_pack(n, num_keys, n_pay, seed, hi=6):
     return cols
 
 
-def _port(cols, num_keys):
+def _port(cols, num_keys, shift=0):
     out, starts, sidx = tfused.fused_sort_scan(
-        [torch.from_numpy(c) for c in cols], num_keys)
+        [torch.from_numpy(c) for c in cols], num_keys, shift)
     return [o.numpy() for o in out], starts.numpy(), sidx.numpy()
 
 
@@ -129,6 +129,48 @@ def test_main_path_packs_match_lax_sort(pack, num_keys):
     np.testing.assert_array_equal(got_st, np.asarray(ref_starts))
     np.testing.assert_array_equal(
         got_si, np.asarray(jseg.start_index(ref_starts)))
+
+
+def _lax_sort_scan(cols, num_keys, shift):
+    """The reference for a shifted scan: lax.sort(is_stable=True), then the
+    JAX package's segment_starts and start_index of sorted[0] >> shift."""
+    want = jax.lax.sort(tuple(jnp.asarray(c) for c in cols),
+                        num_keys=num_keys, is_stable=True)
+    starts = jseg.segment_starts(want[0] >> shift)
+    return ([np.asarray(w) for w in want], np.asarray(starts),
+            np.asarray(jseg.start_index(starts)))
+
+
+@pytest.mark.parametrize("pack,num_keys", [(_lock_pack, 2),
+                                           (_unpermute_pack, 1)])
+def test_shifted_scan_matches_reference(pack, num_keys):
+    # shift 1 on the lock pack gives arbitrate's row segments (keykind >> 1)
+    cols = pack(13)
+    _assert_same(_port(cols, num_keys, shift=1),
+                 _lax_sort_scan(cols, num_keys, 1))
+
+
+@pytest.mark.parametrize("shift", [1, 2, 31])
+@pytest.mark.parametrize("n", [1, 2, 7, 64, 130])
+def test_shifted_scan_small_packs(n, shift):
+    # keys in [-9, 9): negative keys shift arithmetically
+    rng = np.random.default_rng(300 + n)
+    cols = [rng.integers(-9, 9, n).astype(np.int32),
+            rng.integers(0, 4, n).astype(np.int32),
+            rng.integers(0, 1 << 20, n).astype(np.int32)]
+    _assert_same(_port(cols, 2, shift), _lax_sort_scan(cols, 2, shift))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_sort_pack_scan_in_and_out_of_scope(fused):
+    # the kernel's scan outputs inside an active scope, the plain sort and
+    # scans outside it: the same answer either way
+    cols = _lock_pack(17)
+    with tseg.fused_scope(Config(fused_arbitrate=fused)):
+        srt, starts, sidx = tseg.sort_pack_scan(
+            [torch.from_numpy(c) for c in cols], num_keys=2, shift=1)
+    _assert_same(([o.numpy() for o in srt], starts.numpy(), sidx.numpy()),
+                 _lax_sort_scan(cols, 2, 1))
 
 
 def test_gate_takes_widths_past_the_tpu_cap():

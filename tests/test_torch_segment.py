@@ -60,6 +60,19 @@ def test_cumsum_exclusive_and_any_before(n):
     _eq(tseg.seg_any_before(T(mask), ts), jseg.seg_any_before(J(mask), js))
 
 
+@pytest.mark.parametrize("n", SIZES)
+def test_cumsum_exclusive_and_any_before_at_start_index(n):
+    # given the start index, the segment-start value is a gather, not a
+    # cummax: the same answer as the JAX functions
+    ids, _, cnt, mask = _segments(n, 60 + n)
+    ts, js = tseg.segment_starts(T(ids)), jseg.segment_starts(J(ids))
+    sidx = tseg.start_index(ts)
+    _eq(tseg.seg_cumsum_exclusive(T(cnt), ts, sidx),
+        jseg.seg_cumsum_exclusive(J(cnt), js))
+    _eq(tseg.seg_any_before(T(mask), ts, sidx),
+        jseg.seg_any_before(J(mask), js))
+
+
 @pytest.mark.parametrize("op", ["min", "max", "sum"])
 @pytest.mark.parametrize("n", SIZES)
 def test_seg_reduce(op, n):
