@@ -101,44 +101,14 @@ def cuda_ms(fn, reps=50, warm=5):
     return a.elapsed_time(b) / reps
 
 
-def sort_launches(kernels):
-    """Launches of the fused kernel among a trace's device kernels."""
-    from deneva_tpu_torch.profile_tick import SORT_KERNELS
-    return sum(e.count for e in kernels
-               if any(k in e.key for k in SORT_KERNELS))
-
-
-def trace(fn, reps, expect_sort=None):
-    """The device kernels (``key_averages()`` rows) of `reps` calls of
-    `fn` in one torch.profiler trace.  The profiler has been seen to drop
-    a few kernel events of a trace on an H100 host; when `expect_sort` is
-    given, a trace with fewer fused-kernel launches than that is taken
-    again, up to three times."""
-    from deneva_tpu_torch.profile_tick import device_kernels
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kernels = device_kernels(prof)
-        if expect_sort is None or sort_launches(kernels) >= expect_sort:
-            break
-    return kernels
-
-
 def device_ms(fn, reps=20, expect_sort=None):
     """Device time of one call of `fn` and the device kernels it runs: the
     sums over its kernels in a torch.profiler trace of `reps` calls.
     Unlike `cuda_ms`, the time leaves out the host's gaps between
     launches."""
-    from deneva_tpu_torch.profile_tick import device_us
-    kernels = trace(fn, reps, expect_sort)
-    return (sum(device_us(e) for e in kernels) / reps / 1e3,
-            sum(e.count for e in kernels) / reps)
+    from deneva_tpu_torch.profile_tick import breakdown, trace_kernels
+    per = breakdown(trace_kernels(fn, reps, expect_sort), reps)
+    return per["device_busy_us"] / 1e3, per["kernel_launches"]
 
 
 def compare(fused, cols, num_keys, shift=0):
@@ -241,7 +211,6 @@ def phase_kernel(fused, dev):
         if dev_launches != 1:
             raise AssertionError(f"{name}: {dev_launches} device kernels "
                                  "per call, expected 1")
-        phases = fused.phase_us(cols, nk, shift)
         plain_ms = cuda_ms(lambda: fused.fused_sort_scan_plain(cols, nk,
                                                                shift))
         library_ms = cuda_ms(lib_fn)
@@ -261,36 +230,30 @@ def phase_kernel(fused, dev):
             f"{plain_ms:.4f} ms, torch.sort {library_ms:.4f} ms "
             f"({library_dev_ms:.4f} ms on the device), bound {bms:.5f} ms "
             f"({by})")
-        say("kernel", f"{name}: phases of one call (block 0's SM clock at "
-            f"{plan['clock_khz'] / 1e3:.0f} MHz): " + ", ".join(
-                f"{k} {us:.2f} us" for k, us in phases))
     return rows
 
 
 def phase_trace(eng, state):
     """A torch.profiler trace of TRACE_TICKS headline ticks: the kernel's
     device launches per tick and the cummax kernels left in the tick."""
-    from deneva_tpu_torch.profile_tick import CUMMAX_KERNELS, device_us
+    from deneva_tpu_torch.profile_tick import breakdown, trace_kernels
     box = [state]
 
     def tick():
         box[0] = eng.tick(box[0])
 
-    kernels = trace(tick, TRACE_TICKS, expect_sort=2 * TRACE_TICKS)
-    per = lambda rows: sum(e.count for e in rows) / TRACE_TICKS
-    sort_per_tick = sort_launches(kernels) / TRACE_TICKS
-    cummax = [e for e in kernels if any(k in e.key for k in CUMMAX_KERNELS)]
-    busy = sum(device_us(e) for e in kernels) / TRACE_TICKS
+    per = breakdown(trace_kernels(tick, TRACE_TICKS, 2 * TRACE_TICKS),
+                    TRACE_TICKS)
     say("trace", f"{TRACE_TICKS} headline ticks (torch.profiler): "
-        f"{per(kernels):.1f} device launches per tick, device busy "
-        f"{busy:.1f} us per tick, fused kernel {sort_per_tick:g} launches "
-        f"per tick, cummax kernels {per(cummax):g} per tick")
-    if sort_per_tick != 2:
-        raise AssertionError(f"{sort_per_tick} fused kernel launches per "
-                             "traced tick, expected 2")
-    if cummax:
-        raise AssertionError("the headline tick still runs torch.cummax: "
-                             f"{[e.key for e in cummax]}")
+        f"{per['kernel_launches']:.1f} device launches per tick, device "
+        f"busy {per['device_busy_us']:.1f} us per tick, fused kernel "
+        f"{per['fused_sort_scan_launches']:g} launches per tick, cummax "
+        f"kernels {per['cummax_launches']:g} per tick")
+    if per["fused_sort_scan_launches"] != 2:
+        raise AssertionError(f"{per['fused_sort_scan_launches']} fused "
+                             "kernel launches per traced tick, expected 2")
+    if per["cummax_launches"]:
+        raise AssertionError("the headline tick still runs torch.cummax")
 
 
 def phase_headline(cells, Engine, timed_run, fused, dev):

@@ -84,7 +84,6 @@ struct Params {
   uint8_t* starts;
   int32_t* sidx;
   int32_t* block_last;  // one word per block
-  long long* clocks;    // null, or levels + 3 SM clock readings of block 0
 };
 
 template <int W>
@@ -380,12 +379,6 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ Shared sh;
   cg::grid_group grid = cg::this_grid();
   const int n = p.n;
-  // block 0's SM clock at the start and after each grid barrier: the
-  // phases' durations, since every block leaves a barrier together
-  const bool timed = p.clocks != nullptr && blockIdx.x == 0 &&
-                     threadIdx.x == 0;
-  int ticks = 0;
-  if (timed) p.clocks[ticks++] = clock64();
 
   // this block's chunks of every merge level, and its range of sorted
   // positions in the epilogue: all of them in block 0 without merge levels
@@ -407,13 +400,11 @@ __global__ void __launch_bounds__(kThreads)
   int run = kTile;
   for (int l = 0; l < p.levels; ++l, run <<= 1) {
     grid.sync();
-    if (timed) p.clocks[ticks++] = clock64();
     merge_level<W>(p, s, sh, p.buf[l & 1], p.buf[(l + 1) & 1], run, c_begin,
                    c_end, l == p.levels - 1, running);
   }
   if (threadIdx.x == 0) p.block_last[blockIdx.x] = running;
   grid.sync();
-  if (timed) p.clocks[ticks++] = clock64();
 
   // 3. positions before this range's first start belong to a segment that
   // started in an earlier range: the largest start published before it
@@ -429,7 +420,6 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int i = lo + threadIdx.x; i < sh.first_start; i += kThreads)
     p.sidx[i] = sh.carry;
-  if (timed) p.clocks[ticks] = clock64();
 }
 
 int merge_levels(int n) {
@@ -494,22 +484,18 @@ long long dn_scratch_words(int num_keys, int n) {
 }
 
 // The launch a call of this shape makes on the current device:
-// plan[0] = blocks, plan[1] = records per tile, plan[2] = merge levels,
-// plan[3] = outputs per merge chunk, plan[4] = the SM clock rate in kHz,
-// plan[5] = threads per block.  Returns 0 or a cudaError_t code.
+// plan[0] = blocks, plan[1] = threads per block, plan[2] = records per
+// tile, plan[3] = merge levels, plan[4] = outputs per merge chunk.
+// Returns 0 or a cudaError_t code.
 int dn_launch_plan(int num_keys, int n, int* plan) {
   if (!valid(num_keys, num_keys, n))
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev;
-  cudaError_t err = grid_size(num_keys, n, plan);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(plan + 4, cudaDevAttrClockRate, dev);
+  const cudaError_t err = grid_size(num_keys, n, plan);
   if (err != cudaSuccess) return static_cast<int>(err);
-  plan[1] = kTile;
-  plan[2] = merge_levels(n);
-  plan[3] = kChunk;
-  plan[5] = kThreads;
+  plan[1] = kThreads;
+  plan[2] = kTile;
+  plan[3] = merge_levels(n);
+  plan[4] = kChunk;
   return 0;
 }
 
@@ -520,13 +506,10 @@ const char* dn_error_string(int code) {
 // ins: n_in device pointers to int32 columns of length n; outs: n_in device
 // pointers receiving the sorted columns; starts: uint8 output of length n
 // (0/1); sidx: int32 output of length n; scratch: dn_scratch_words int32
-// words; clocks: null, or levels + 3 int64 words that receive block 0's SM
-// clock at the start, after each grid barrier and at the end.  Returns 0
-// or a cudaError_t code.
+// words.  Returns 0 or a cudaError_t code.
 int dn_fused_sort_scan(void* const* ins, int n_in, int num_keys, int n,
                        int shift, void* const* outs, void* starts,
-                       void* sidx, void* scratch, void* clocks,
-                       void* stream_ptr) {
+                       void* sidx, void* scratch, void* stream_ptr) {
   if (!valid(n_in, num_keys, n) || shift < 0 || shift > 31)
     return static_cast<int>(cudaErrorInvalidValue);
   int grid;
@@ -548,7 +531,6 @@ int dn_fused_sort_scan(void* const* ins, int n_in, int num_keys, int n,
   p.starts = static_cast<uint8_t*>(starts);
   p.sidx = static_cast<int32_t*>(sidx);
   p.block_last = reinterpret_cast<int32_t*>(p.buf[1] + words);
-  p.clocks = static_cast<long long*>(clocks);
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel(kernel_for(num_keys), dim3(grid),
                                     dim3(kThreads), args, 0,

@@ -128,7 +128,7 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.dn_fused_sort_scan.argtypes = [
             ctypes.POINTER(vp), ci, ci, ci, ci, ctypes.POINTER(vp), vp, vp,
-            vp, vp, vp]
+            vp, vp]
         lib.dn_fused_sort_scan.restype = ci
         lib.dn_scratch_words.argtypes = [ci, ci]
         lib.dn_scratch_words.restype = ctypes.c_longlong
@@ -157,40 +157,16 @@ def _raise_on(lib, rc: int, what: str) -> None:
 def launch_plan(num_keys: int, n: int) -> dict:
     """The one cooperative launch a call of this shape makes on the current
     CUDA device: blocks and threads per block, records per tile, merge
-    levels, outputs per merge chunk, the tiles each block sorts at most,
-    and the SM clock in kHz."""
+    levels, outputs per merge chunk and the tiles each block sorts at
+    most."""
     lib = _lib()
-    plan = (ctypes.c_int * 6)()
+    plan = (ctypes.c_int * 5)()
     _raise_on(lib, lib.dn_launch_plan(num_keys, n, plan), "launch plan")
-    grid, tile, levels, chunk, clock_khz, threads = plan
+    grid, threads, tile, levels, chunk = plan
     tiles = -(-n // tile)
     return {"grid": grid, "threads": threads, "tile": tile,
             "levels": levels, "chunk": chunk, "tiles": tiles,
-            "tiles_per_block": -(-tiles // grid), "clock_khz": clock_khz}
-
-
-def phase_us(operands, num_keys: int, shift: int = 0) -> list:
-    """One kernel call on CUDA ``operands`` that also reads block 0's SM
-    clock after each grid barrier: ``[(phase, microseconds), ...]`` for the
-    tile sort, each merge level (the last with the epilogue fused in) and
-    the start-index carry, at the SM clock rate the device reports.
-    Counts no launch."""
-    global LAUNCHES
-    cols = [o.contiguous() for o in operands]
-    plan = launch_plan(num_keys, cols[0].shape[0])
-    levels = plan["levels"]
-    clocks = torch.zeros(levels + 3, dtype=torch.int64,
-                         device=cols[0].device)
-    before = (LAUNCHES, dict(LAUNCHES_BY_PACK))
-    _fused_sort_scan_cuda(cols, num_keys, shift, clocks)
-    LAUNCHES = before[0]
-    LAUNCHES_BY_PACK.clear()
-    LAUNCHES_BY_PACK.update(before[1])
-    cycles = torch.diff(clocks).tolist()
-    names = ["tile sort"] + [f"merge level {i + 1}" for i in range(levels)]
-    names[-1] += " + epilogue"
-    return [(name, c / plan["clock_khz"] * 1e3)
-            for name, c in zip(names + ["carry"], cycles)]
+            "tiles_per_block": -(-tiles // grid)}
 
 
 def _check_cuda_pack(cols, num_keys: int, shift: int) -> None:
@@ -213,7 +189,7 @@ def _check_cuda_pack(cols, num_keys: int, shift: int) -> None:
                 f"{tuple(c.shape)} on {c.device}")
 
 
-def _fused_sort_scan_cuda(cols, num_keys: int, shift: int, clocks=None):
+def _fused_sort_scan_cuda(cols, num_keys: int, shift: int):
     global LAUNCHES
     _check_cuda_pack(cols, num_keys, shift)
     lib = _lib()
@@ -232,8 +208,7 @@ def _fused_sort_scan_cuda(cols, num_keys: int, shift: int, clocks=None):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.dn_fused_sort_scan(
             ptrs(cols), len(cols), num_keys, n, shift, ptrs(outs),
-            starts.data_ptr(), sidx.data_ptr(), scratch.data_ptr(),
-            None if clocks is None else clocks.data_ptr(), stream)
+            starts.data_ptr(), sidx.data_ptr(), scratch.data_ptr(), stream)
     _raise_on(lib, rc, "kernel launch")
     LAUNCHES += 1
     pack = (len(cols), num_keys)

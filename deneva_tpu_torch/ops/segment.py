@@ -113,16 +113,13 @@ def pos_in_segment(starts: torch.Tensor) -> torch.Tensor:
 
 def seg_cumsum_exclusive(x: torch.Tensor, starts: torch.Tensor,
                          sidx: Optional[torch.Tensor] = None):
-    """Per-segment exclusive prefix sum (count of `x` strictly before me).
-    Requires x >= 0: the global exclusive sum is then non-decreasing, and
-    its value at my segment start is a cummax over start-masked values, or,
-    given the start index ``sidx``, a gather at it."""
-    excl = torch.cumsum(x, 0, dtype=x.dtype) - x
+    """Per-segment exclusive prefix sum (count of `x` strictly before me):
+    the global exclusive sum less its value at my segment start, gathered
+    at the start index ``sidx`` (computed from ``starts`` when not given)."""
     if sidx is None:
-        start_excl = torch.cummax(torch.where(starts, excl, 0), 0).values
-    else:
-        start_excl = excl.index_select(0, sidx)
-    return excl - start_excl
+        sidx = start_index(starts)
+    excl = torch.cumsum(x, 0, dtype=x.dtype) - x
+    return excl - excl.index_select(0, sidx)
 
 
 def seg_any_before(mask: torch.Tensor, starts: torch.Tensor,

@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 from deneva_tpu_torch.config import Config  # noqa: E402
 from deneva_tpu_torch.engine.scheduler import Engine  # noqa: E402
 from deneva_tpu_torch.ops import fused  # noqa: E402
-from deneva_tpu_torch.profile_tick import device_kernels  # noqa: E402
+from deneva_tpu_torch.profile_tick import breakdown, trace_kernels  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -49,21 +49,9 @@ def _check(cols, num_keys, shift=0):
 
 
 def _device_launches(fn) -> int:
-    """Kernels the card ran for one call of `fn` (torch.profiler).  A trace
-    that lost the call's kernel event, as the profiler has been seen to do
-    on the GPU host, is taken again, up to three times."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        count = sum(e.count for e in device_kernels(prof))
-        if count:
-            break
-    return count
+    """Kernels the card ran for one call of `fn` (torch.profiler)."""
+    return breakdown(trace_kernels(fn, 1, expect_sort=1), 1)[
+        "kernel_launches"]
 
 
 @pytest.mark.parametrize("n,num_keys,n_cols", [
