@@ -13,10 +13,22 @@ Phases, each printing one line:
      fused_arbitrate) on CUDA: the [summary] line, commits per tick, tick
      time from CUDA events, peak memory, and 2 kernel launches per tick
      with no fallback; then a short torch.profiler trace of the same
-     ticks: 2 device launches of the kernel per tick and no cummax;
+     ticks: 2 device launches of the kernel per tick, no cummax, and no
+     host sync (CUDA sync debug mode);
   5. the same cell on the port's CPU path: summary and data equal to a
-     CUDA run of the same length, and the write-count oracle.
-Then one JSON line of per-kernel numbers and the final
+     CUDA run of the same length, and the write-count oracle;
+  6. the tpcc cell (TPC-C at 128 warehouses, 16.74M rows, B=8192, NO_WAIT,
+     fused_arbitrate) on CUDA: pool and table build times, the [summary]
+     line, commits per tick, abort rate, tick time, the kernel's launches
+     per tick by pack against the ticks that took the compacted or the
+     full-width effect body, 0 fallbacks, TPC-C's conservation laws, a
+     traced window whose device launches of the kernel match the count,
+     and 2 host syncs per tick (the effect step's two reads);
+  7. every pack one tpcc tick sorts, captured from the tick, held
+     bit-equal to the plain version and timed as in phase 3;
+  8. the tpcc cell on the port's CPU path: summary, data and every table
+     equal to a CUDA run of the same length.
+Then one JSON line of per-kernel numbers (one entry per pack) and the final
 ``{"ok": true, "device": {...}}`` line.  Any failure raises and exits
 nonzero; without a CUDA device it exits nonzero before printing a result.
 """
@@ -46,6 +58,22 @@ MAIN_N = 8192 * 10           # B * R lanes of the headline cell
 #: two between 2 and 8 tiles of 1024 records (6 tiles: 3 merge levels)
 UNIT_WIDTHS = (1, 2, 7, 64, 96, 128, 130, 6007)
 TRACE_TICKS = 10
+TPCC_TICKS = 300
+TPCC_CPU_TICKS = 40
+TPCC_B = 8192                # batch size of the tpcc cell
+TPCC_N = TPCC_B * 33         # its B * R lock entries (R = 3 + 2*15)
+TPCC_K = 1024 * 17           # its compacted effect lanes: admit_cap * 17
+#: every pack the two cells' ticks sort, as (columns, keys, lanes, shift)
+PACK_NAMES = {
+    (3, 2, MAIN_N, 1): "headline lock sort",
+    (2, 1, MAIN_N, 0): "headline unpermute",
+    (3, 2, TPCC_N, 1): "tpcc lock sort",
+    (2, 1, TPCC_N, 0): "tpcc unpermute",
+    (8, 2, TPCC_N, 0): "tpcc effect compaction",
+    (3, 2, TPCC_B, 0): "tpcc o_id rank",
+    (3, 2, TPCC_K, 0): "tpcc restock chain + 3 ring appends",
+    (3, 2, TPCC_N, 0): "tpcc restock chain + 3 ring appends, full width",
+}
 
 
 def say(phase: str, msg: str) -> None:
@@ -105,10 +133,13 @@ def device_ms(fn, reps=20, expect_sort=None):
     """Device time of one call of `fn` and the device kernels it runs: the
     sums over its kernels in a torch.profiler trace of `reps` calls.
     Unlike `cuda_ms`, the time leaves out the host's gaps between
-    launches."""
+    launches.  With `expect_sort` (a call of the fused kernel), both are
+    taken per launch of the fused kernel the trace holds, since the
+    profiler has been seen to drop a kernel event of a trace."""
     from deneva_tpu_torch.profile_tick import breakdown, trace_kernels
     per = breakdown(trace_kernels(fn, reps, expect_sort), reps)
-    return per["device_busy_us"] / 1e3, per["kernel_launches"]
+    calls = per["fused_sort_scan_launches"] if expect_sort else 1
+    return per["device_busy_us"] / calls / 1e3, per["kernel_launches"] / calls
 
 
 def compare(fused, cols, num_keys, shift=0):
@@ -190,53 +221,71 @@ def phase_kernel(fused, dev):
         "and 1 (tolerance: exact, integer outputs)")
 
     lock, unperm = main_path_packs(dev)
-    rows = {}
-    for name, cols, nk, shift, lib_fn in (
-            ("lock sort (3 columns, 2 keys)", lock, 2, 1,
-             lambda: torch.sort((lock[0].to(torch.int64) << 32)
-                                | lock[1].to(torch.int64), stable=True)),
-            ("unpermute (2 columns, 1 key)", unperm, 1, 0,
-             lambda: torch.sort(unperm[0], stable=True))):
-        for sh in sorted({0, shift}):
-            err = compare(fused, cols, nk, sh)
-            if err != 0:
-                raise AssertionError(
-                    f"kernel != plain on the {name}, shift {sh}: {err}")
-        plan = fused.launch_plan(nk, MAIN_N)
-        before = (fused.LAUNCHES, dict(fused.LAUNCHES_BY_PACK))
-        call = lambda: fused.fused_sort_scan(cols, nk, shift)
-        ms = cuda_ms(call)
-        dev_ms, dev_launches = device_ms(call, expect_sort=20)
-        fused.LAUNCHES, fused.LAUNCHES_BY_PACK = before[0], before[1]
-        if dev_launches != 1:
-            raise AssertionError(f"{name}: {dev_launches} device kernels "
-                                 "per call, expected 1")
-        plain_ms = cuda_ms(lambda: fused.fused_sort_scan_plain(cols, nk,
-                                                               shift))
-        library_ms = cuda_ms(lib_fn)
-        library_dev_ms, _ = device_ms(lib_fn)
-        bms, by = bound_ms(MAIN_N, len(cols), nk)
-        rows[(len(cols), nk)] = dict(
-            err=err, ms=ms, device_ms=dev_ms, device_launches=dev_launches,
-            plain_ms=plain_ms, library_ms=library_ms,
-            library_device_ms=library_dev_ms, bound_ms=bms, bound_by=by)
-        say("kernel", f"{name} n={MAIN_N} shift={shift}: launch plan "
-            f"grid={plan['grid']} blocks x {plan['threads']} threads, tile="
-            f"{plan['tile']} records ({plan['tiles']} tiles), merge "
-            f"levels={plan['levels']}, chunk={plan['chunk']}")
-        say("kernel", f"{name}: bit-equal, kernel {ms:.4f} ms per call "
-            f"({dev_ms:.4f} ms of it on the device in {dev_launches:g} "
-            f"device kernel per call, torch.profiler), plain "
-            f"{plain_ms:.4f} ms, torch.sort {library_ms:.4f} ms "
-            f"({library_dev_ms:.4f} ms on the device), bound {bms:.5f} ms "
-            f"({by})")
-    return rows
+    return {pack: measure_pack(fused, PACK_NAMES[pack], cols, pack[1],
+                               pack[3])
+            for pack, cols in (((3, 2, MAIN_N, 1), lock),
+                               ((2, 1, MAIN_N, 0), unperm))}
+
+
+def library_call(cols, nk):
+    """One torch.sort that orders the pack as the kernel does: by the key
+    itself, or by two int32 keys packed into one int64 (both stable)."""
+    if nk == 1:
+        return lambda: torch.sort(cols[0], stable=True)
+    assert nk == 2
+    return lambda: torch.sort((cols[0].to(torch.int64) << 32)
+                              | (cols[1].to(torch.int64) & 0xFFFFFFFF),
+                              stable=True)
+
+
+def measure_pack(fused, name, cols, nk, shift):
+    """The kernel on one pack of the main path: bit-equal to its plain
+    version (with the path's shift and with 0), its launch plan, its time
+    per call (CUDA events) and on the device (torch.profiler, which must
+    see exactly 1 device kernel per call), the plain version's and one
+    torch.sort's time, and the bound.  Restores the launch counters."""
+    n = cols[0].shape[0]
+    for sh in sorted({0, shift}):
+        err = compare(fused, cols, nk, sh)
+        if err != 0:
+            raise AssertionError(
+                f"kernel != plain on the {name}, shift {sh}: {err}")
+    plan = fused.launch_plan(nk, n)
+    before = (fused.LAUNCHES, dict(fused.LAUNCHES_BY_PACK))
+    call = lambda: fused.fused_sort_scan(cols, nk, shift)
+    ms = cuda_ms(call)
+    dev_ms, dev_launches = device_ms(call, expect_sort=20)
+    fused.LAUNCHES, fused.LAUNCHES_BY_PACK = before[0], before[1]
+    if dev_launches != 1:
+        raise AssertionError(f"{name}: {dev_launches} device kernels "
+                             "per call, expected 1")
+    plain_ms = cuda_ms(lambda: fused.fused_sort_scan_plain(cols, nk, shift))
+    lib_fn = library_call(cols, nk)
+    library_ms = cuda_ms(lib_fn)
+    library_dev_ms, _ = device_ms(lib_fn)
+    bms, by = bound_ms(n, len(cols), nk)
+    say("kernel", f"{name} n={n} shift={shift}: launch plan "
+        f"grid={plan['grid']} blocks x {plan['threads']} threads, tile="
+        f"{plan['tile']} records ({plan['tiles']} tiles), merge "
+        f"levels={plan['levels']}, chunk={plan['chunk']}")
+    say("kernel", f"{name}: bit-equal, kernel {ms:.4f} ms per call "
+        f"({dev_ms:.4f} ms of it on the device in {dev_launches:g} "
+        f"device kernel per call, torch.profiler), plain "
+        f"{plain_ms:.4f} ms, torch.sort {library_ms:.4f} ms "
+        f"({library_dev_ms:.4f} ms on the device), bound {bms:.5f} ms "
+        f"({by})")
+    return dict(err=err, ms=ms, device_ms=dev_ms,
+                device_launches=dev_launches, plain_ms=plain_ms,
+                library_ms=library_ms, library_device_ms=library_dev_ms,
+                bound_ms=bms, bound_by=by)
 
 
 def phase_trace(eng, state):
     """A torch.profiler trace of TRACE_TICKS headline ticks: the kernel's
-    device launches per tick and the cummax kernels left in the tick."""
-    from deneva_tpu_torch.profile_tick import breakdown, trace_kernels
+    device launches per tick and the cummax kernels left in the tick;
+    then the same ticks under the CUDA sync debug mode: no host sync."""
+    from deneva_tpu_torch.profile_tick import (breakdown, host_syncs,
+                                               trace_kernels)
     box = [state]
 
     def tick():
@@ -254,6 +303,9 @@ def phase_trace(eng, state):
                              "kernel launches per traced tick, expected 2")
     if per["cummax_launches"]:
         raise AssertionError("the headline tick still runs torch.cummax")
+    syncs, sites = host_syncs(tick, TRACE_TICKS)
+    if syncs:
+        raise AssertionError(f"the headline tick syncs the host: {sites}")
 
 
 def phase_headline(cells, Engine, timed_run, fused, dev):
@@ -301,6 +353,206 @@ def phase_headline(cells, Engine, timed_run, fused, dev):
     return by_pack
 
 
+def capture_packs(fused, fn):
+    """The inputs of the first kernel call of each pack shape that `fn`
+    makes, cloned, by (columns, keys, lanes, shift)."""
+    got = {}
+    orig = fused._fused_sort_scan_cuda
+
+    def record(cols, num_keys, shift):
+        key = (len(cols), num_keys, cols[0].shape[0], shift)
+        got.setdefault(key, [c.clone() for c in cols])
+        return orig(cols, num_keys, shift)
+
+    fused._fused_sort_scan_cuda = record
+    try:
+        fn()
+    finally:
+        fused._fused_sort_scan_cuda = orig
+    return got
+
+
+def tpcc_checksums(tpcc, tables):
+    """Sums of the TPC-C columns the conservation laws read (int64)."""
+    cols = ("w_ytd", "d_ytd", "d_next_o_id", "c_balance", "c_ytd_payment",
+            "c_payment_cnt", "h_amount", "hist_cursor", "order_cursor",
+            "ol_cursor", "o_ol_cnt", "s_order_cnt", "s_ytd", "ol_quantity")
+    return {c: int(tpcc.ring_view(tables, c).to(torch.int64).sum().item())
+            for c in cols}
+
+
+def check_tpcc_conservation(cfg, init, fin, s):
+    """TPC-C's money and order conservation (tests/test_tpcc.py): every
+    committed Payment moves h_amount through W_YTD, D_YTD, C_BALANCE,
+    C_YTD_PAYMENT and HISTORY; every committed NewOrder advances
+    D_NEXT_O_ID once and appends its ORDER and ORDER-LINE rows.  A law
+    that sums an insert ring's contents holds only while that ring has
+    not wrapped (the rings start empty).  Returns the Payments, the
+    NewOrders and the names of the laws checked."""
+    d = {k: fin[k] - init[k] for k in init}
+    payments, neworders = d["c_payment_cnt"], d["d_next_o_id"]
+    laws = {
+        "commits": payments + neworders == s["txn_cnt"],
+        "money": d["d_ytd"] == -d["c_balance"] == d["c_ytd_payment"]
+        and d["w_ytd"] == (d["d_ytd"] if cfg.wh_update else 0),
+        "history": d["hist_cursor"] == payments,
+        "orders": d["order_cursor"] == neworders,
+        "order lines": d["ol_cursor"] == d["s_order_cnt"],
+    }
+    if fin["hist_cursor"] <= cfg.tpcc_hist_cap:
+        laws["history money"] = d["h_amount"] == d["d_ytd"]
+    if fin["order_cursor"] <= cfg.tpcc_max_orders:
+        laws["order line counts"] = d["o_ol_cnt"] == d["ol_cursor"]
+    if fin["ol_cursor"] <= cfg.tpcc_ol_cap:
+        laws["stock ytd"] = d["s_ytd"] == d["ol_quantity"]
+    broken = [k for k, ok in laws.items() if not ok]
+    if broken:
+        raise AssertionError(f"TPC-C conservation broken: {broken} {d}")
+    return payments, neworders, sorted(laws)
+
+
+def phase_tpcc(cells, Engine, timed_run, fused, dev):
+    """The tpcc cell at full scale on the card: build times, 300 ticks in
+    windows, launches per tick by pack against the branch counts, the
+    conservation laws, a traced window, and the captured packs."""
+    from deneva_tpu_torch.workloads import tpcc
+    cfg = cells.config("tpcc")
+    t0 = time.perf_counter()
+    eng = Engine(cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    pool_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = eng.init_state()
+    torch.cuda.synchronize(dev)
+    tables_s = time.perf_counter() - t0
+    mb = sum(v.numel() * v.element_size()
+             for v in state.tables.values()) / 2**20
+    say("tpcc", f"query pool ({eng.pool.size} txns, {eng.n_rows} catalog "
+        f"rows) generated and uploaded in {pool_s:.2f} s; tables "
+        f"({mb:.1f} MB on the card) built in {tables_s:.2f} s")
+    init = tpcc_checksums(tpcc, state.tables)
+    wl = eng.workload
+    state = eng.run(WARMUP_TICKS, state)
+    before = eng.summary(state)["txn_cnt"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused.reset_fallbacks()
+    fused.reset_launches()
+    branch0 = dict(wl.branch_ticks)
+    window_ms = []
+    for _ in range(TPCC_TICKS // WINDOW_TICKS):
+        state, per_tick = timed_run(eng, WINDOW_TICKS, state)
+        window_ms.append(per_tick * 1e3)
+    by_pack = dict(fused.LAUNCHES_BY_PACK)
+    snap = fused.fallback_snapshot()
+    branch = {k: v - branch0[k] for k, v in wl.branch_ticks.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    s = eng.summary(state)
+    commits = s["txn_cnt"] - before
+    tick_ms = float(np.median(window_ms))
+    print(eng.summary_line(state))
+    say("tpcc", f"ticks={TPCC_TICKS} commits_per_tick="
+        f"{commits / TPCC_TICKS} abort_rate={s['abort_rate']:.6f} "
+        f"user_abort_cnt={s['user_abort_cnt']} tick_ms median={tick_ms:.4f}"
+        f" min={min(window_ms):.4f} max={max(window_ms):.4f} over "
+        f"{len(window_ms)} windows of {WINDOW_TICKS} ticks (cuda events) "
+        f"committed_txn_per_s={commits / TPCC_TICKS / tick_ms * 1e3:.1f} "
+        f"peak_mem_mb={peak / 2**20:.1f}")
+    c, f = branch["compact"], branch["full"]
+    say("tpcc", f"effect bodies: compact={c} full={f} ticks; kernel launches="
+        f"{fused.LAUNCHES} ({fused.LAUNCHES / TPCC_TICKS:g} per tick), "
+        f"fallbacks={snap['count']}")
+    for pack, cnt in sorted(by_pack.items()):
+        say("tpcc", f"  {PACK_NAMES.get(pack, pack)} {pack}: {cnt} "
+            f"launches, {cnt / TPCC_TICKS:g} per tick")
+    T = TPCC_TICKS
+    want = {(3, 2, TPCC_N, 1): T, (2, 1, TPCC_N, 0): T,
+            (3, 2, TPCC_B, 0): T}
+    if c:
+        want.update({(8, 2, TPCC_N, 0): c, (3, 2, TPCC_K, 0): 4 * c})
+    if f:
+        want[(3, 2, TPCC_N, 0)] = 4 * f
+    if c + f != T or by_pack != want:
+        raise AssertionError(f"tpcc launches by pack {by_pack} != {want} "
+                             f"for {c} compact and {f} full ticks")
+    if snap["count"] != 0:
+        raise AssertionError(f"fused sort fell back: {snap}")
+    if int(state.data.sum().item()) != s["write_cnt"]:
+        raise AssertionError("data.sum() != write_cnt on the tpcc run")
+    payments, neworders, laws = check_tpcc_conservation(
+        cfg, init, tpcc_checksums(tpcc, state.tables), s)
+    if not (payments > 0 and neworders > 0 and math.isfinite(tick_ms)):
+        raise AssertionError("the tpcc run committed no Payment or NewOrder")
+    say("tpcc", f"conservation holds ({', '.join(laws)}): {payments} "
+        f"Payments, {neworders} NewOrders; data.sum() == write_cnt")
+
+    # a traced window: the kernel's device launches per tick equal the
+    # wrapper's count over the same ticks; then the host syncs of a tick:
+    # the two host reads of the effect step and no other
+    from deneva_tpu_torch.profile_tick import (breakdown, host_syncs,
+                                               trace_kernels)
+    box, per_call = [state], []
+
+    def tick():
+        n0 = fused.LAUNCHES
+        box[0] = eng.tick(box[0])
+        per_call.append(fused.LAUNCHES - n0)
+
+    per = breakdown(trace_kernels(tick, TRACE_TICKS, 7 * TRACE_TICKS),
+                    TRACE_TICKS)
+    counted = sum(per_call[-TRACE_TICKS:]) / TRACE_TICKS
+    say("trace", f"{TRACE_TICKS} tpcc ticks (torch.profiler): "
+        f"{per['kernel_launches']:.1f} device launches per tick, device "
+        f"busy {per['device_busy_us']:.1f} us per tick, fused kernel "
+        f"{per['fused_sort_scan_launches']:g} launches and "
+        f"{per['fused_sort_scan_us']:.1f} us per tick (wrapper count "
+        f"{counted:g})")
+    if per["fused_sort_scan_launches"] != counted:
+        raise AssertionError("traced kernel launches per tick != the "
+                             "wrapper's count")
+    syncs, sites = host_syncs(tick, TRACE_TICKS)
+    say("trace", f"{TRACE_TICKS} tpcc ticks (CUDA sync debug mode): "
+        f"{syncs:g} host syncs per tick at {sites}")
+    if round(syncs, 6) != 2 or not all(k.startswith("tpcc.py:")
+                                       for k in sites):
+        raise AssertionError(f"expected the 2 host reads of the effect "
+                             f"step per tick, saw {syncs} at {sites}")
+    packs = capture_packs(fused, tick)
+    eng._flush_body(box[0])
+    return eng.pool, by_pack, packs
+
+
+def phase_tpcc_cpu_match(cells, Engine, dev, pool):
+    from deneva_tpu_torch.workloads import tpcc
+    cfg = cells.config("tpcc")
+    gpu = Engine(cfg, pool=pool, device=dev)
+    cpu = Engine(cfg, pool=pool, device="cpu")
+    init = tpcc_checksums(tpcc, cpu.init_state().tables)
+    sg = gpu.run(TPCC_CPU_TICKS)
+    t0 = time.perf_counter()
+    sc = cpu.run(TPCC_CPU_TICKS)
+    cpu_s = time.perf_counter() - t0
+    a, b = gpu.summary(sg), cpu.summary(sc)
+    diff = {k: (a[k], b.get(k)) for k in a
+            if k != "ccl_samples" and a[k] != b.get(k)}
+    if diff or a != b:
+        raise AssertionError(f"tpcc CUDA and CPU summaries differ: {diff}")
+    if not torch.equal(sg.data.cpu(), sc.data):
+        raise AssertionError("tpcc CUDA and CPU data tables differ")
+    bad = [k for k in sc.tables
+           if not torch.equal(sg.tables[k].cpu(), sc.tables[k])]
+    if bad or sorted(sg.tables) != sorted(sc.tables):
+        raise AssertionError(f"tpcc CUDA and CPU tables differ: {bad}")
+    if gpu.workload.branch_ticks != cpu.workload.branch_ticks:
+        raise AssertionError("tpcc CUDA and CPU took other effect bodies")
+    _, _, laws = check_tpcc_conservation(
+        cfg, init, tpcc_checksums(tpcc, sc.tables), b)
+    say("cpu", f"tpcc {TPCC_CPU_TICKS} ticks: CUDA and CPU summary dicts, "
+        f"data and all {len(sc.tables)} tables equal (txn_cnt="
+        f"{b['txn_cnt']}, user_abort_cnt={b['user_abort_cnt']}, "
+        f"order_cursor={int(tpcc.ring_view(sc.tables, 'order_cursor'))}); "
+        f"CPU run {cpu_s:.1f} s; conservation holds ({', '.join(laws)})")
+
+
 def phase_cpu_match(cells, Engine, dev):
     cfg = cells.config("headline")
     gpu = Engine(cfg, device=dev)
@@ -343,16 +595,27 @@ def main() -> int:
     rows = phase_kernel(fused, dev)
     by_pack = phase_headline(cells, Engine, timed_run, fused, dev)
     phase_cpu_match(cells, Engine, dev)
+    pool, tpcc_by_pack, packs = phase_tpcc(cells, Engine, timed_run, fused,
+                                           dev)
+    for pack, cols in sorted(packs.items()):
+        if pack not in PACK_NAMES:
+            raise AssertionError(f"the tpcc tick sorted an unnamed pack "
+                                 f"{pack}")
+        rows[pack] = measure_pack(fused, PACK_NAMES[pack], cols, pack[1],
+                                  pack[3])
+    phase_tpcc_cpu_match(cells, Engine, dev, pool)
 
+    by_pack.update(tpcc_by_pack)
     kernels = []
-    for (n_in, nk), name in (((3, 2), "fused_sort_scan[lock sort 3x2]"),
-                             ((2, 1), "fused_sort_scan[unpermute 2x1]")):
-        r = rows[(n_in, nk)]
+    for pack, r in sorted(rows.items(), key=lambda kv: PACK_NAMES[kv[0]]):
+        n_in, nk, n, shift = pack
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": f"fused_sort_scan[{PACK_NAMES[pack]} {n_in}x{nk} n={n}"
+                    f" shift={shift}]",
+            "route": "cuda",
             "source": "deneva_tpu_torch/csrc/fused_sort_scan.cu",
             "replaces": "deneva_tpu/ops/fused.py:122",
-            "launches": by_pack.get((n_in, nk), 0),
+            "launches": by_pack.get(pack, 0),
             "device_launches_per_call": r["device_launches"],
             "device_ms": r["device_ms"],
             "max_abs_err": r["err"], "ms": r["ms"],

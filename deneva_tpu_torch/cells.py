@@ -6,6 +6,15 @@
   NO_WAIT and the fused sort + scan kernel: 16M rows, B=8192, 10 requests
   per txn, zipf 0.6, 50/50 read/write, admission capped at 1024 per tick.
   This is Deneva's per-node YCSB grid of the VLDB'17 evaluation.
+- ``tpcc``: the benchmark's TPC-C cell (``bench.py`` ``TPCC_KW``: B=8192,
+  pool 65,536, admission capped at 1024 per tick) under NO_WAIT with the
+  fused kernel, at Deneva's full TPC-C scale: 128 warehouses per node
+  (the ``tpcc_scaling2`` grid, ``BASELINE.md``), 10 districts each, 3,000
+  customers per district, 100,000 items, up to 15 order lines, half
+  Payment and half NewOrder, Payments writing their warehouse row.  That
+  is 16.74M catalog rows (CUSTOMER 3.84M, STOCK 12.8M) and B*R = 270,336
+  lock entries per tick.  Nothing is cut; the insert rings keep the JAX
+  package's default capacities.
 """
 
 from __future__ import annotations
@@ -21,6 +30,11 @@ CELLS = {
                      req_per_query=10, zipf_theta=0.6, tup_read_perc=0.5,
                      query_pool_size=1 << 16, warmup_ticks=0, backoff=True,
                      admit_cap=1024),
+    "tpcc": dict(workload="TPCC", cc_alg="NO_WAIT", fused_arbitrate=True,
+                 batch_size=8192, num_wh=128, dist_per_wh=10,
+                 cust_per_dist=3000, max_items=100000, max_items_per_txn=15,
+                 perc_payment=0.5, wh_update=True, query_pool_size=1 << 16,
+                 warmup_ticks=0, admit_cap=1024),
 }
 
 

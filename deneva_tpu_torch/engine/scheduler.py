@@ -11,14 +11,18 @@ once.  One tick:
   5. sends aborted txns to exponential backoff (worker_thread.cpp:160-171).
 
 This is the port of ``deneva_tpu/engine/scheduler.py`` for one slice:
-YCSB + NO_WAIT, single shard, SERIALIZABLE, NORMAL mode, commit before
-access, with ``fused_arbitrate`` on or off and every other opt-in flag
-off.  ``check_slice`` refuses anything else.  Every observatory hook of
-the reference tick is a no-op at those flags and is left out.
+YCSB or TPC-C under NO_WAIT, single shard, SERIALIZABLE, NORMAL mode,
+commit before access, with ``fused_arbitrate`` on or off and every other
+opt-in flag off.  ``check_slice`` refuses anything else; its single-shard
+rule also covers the JAX engine's ``part_cnt == 1`` assertion for a
+workload with commit effects.  Every observatory hook of the reference
+tick is a no-op at those flags and is left out.
 
 PyTorch runs eagerly, so the tick is a plain function that updates the
-state's counters and rings in place (each in-place site says so) and
-never reads a device value on the host: no tick syncs the device.
+state's counters, rings and workload tables in place (each in-place site
+says so).  The engine itself never reads a device value on the host; a
+YCSB tick syncs the device nowhere.  TPC-C's commit effects read two
+scalars per tick on the host (``workloads/tpcc.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 from deneva_tpu_torch import cc as cc_registry
 from deneva_tpu_torch import workloads as wl_registry
 from deneva_tpu_torch.config import (
-    MODE_NORMAL, NO_WAIT, SERIALIZABLE, YCSB, Config, optin_flags,
+    MODE_NORMAL, NO_WAIT, SERIALIZABLE, TPCC, YCSB, Config, optin_flags,
 )
 from deneva_tpu_torch.engine.state import (
     NULL_KEY, STATUS_BACKOFF, STATUS_FREE, STATUS_RUNNING, STATUS_WAITING,
@@ -103,7 +107,7 @@ def check_slice(cfg: Config) -> None:
     bad = []
     if cfg.cc_alg != NO_WAIT:
         bad.append(f"cc_alg={cfg.cc_alg}")
-    if cfg.workload != YCSB:
+    if cfg.workload not in (YCSB, TPCC):
         bad.append(f"workload={cfg.workload}")
     if cfg.isolation_level != SERIALIZABLE:
         bad.append(f"isolation_level={cfg.isolation_level}")
@@ -122,8 +126,8 @@ def check_slice(cfg: Config) -> None:
             bad.append(name)
     if bad:
         raise NotImplementedError(
-            "outside the ported slice (YCSB + NO_WAIT, single shard, "
-            "default flags): " + ", ".join(bad))
+            "outside the ported slice (YCSB or TPC-C under NO_WAIT, single "
+            "shard, default flags): " + ", ".join(bad))
 
 
 def _zeros_stats(B: int, R: int, device) -> dict:
@@ -337,6 +341,19 @@ def make_tick(cfg: Config, plugin, pool_dev: dict, workload):
                          torch.where(wmask, txn.keys, NULL_ROW))
         stats["wr_ring_cursor"].add_(writing.sum(dtype=I32))
 
+        tables = state.tables
+        if workload.has_effects:
+            # commit effects on the flattened (B*R,) entries, ordered
+            # within the tick by the commit timestamp (txn.ts under 2PL);
+            # keys are shard-local on the single shard.  The tables are
+            # updated in place.
+            flds = workload.commit_fields(cfg, tables, txn, commit)
+            nmask = commit[:, None] & (ridx < txn.n_req[:, None])
+            tables = workload.apply_commit_entries(
+                cfg, tables, txn.keys.reshape(-1), 0,
+                {k: v.reshape(-1) for k, v in flds.items()},
+                txn.ts[:, None].expand(B, R).reshape(-1), nmask.reshape(-1))
+
         stats = bump(stats, "txn_cnt", commit.sum(dtype=I32), measuring)
         stats = bump(stats, "write_cnt", wmask.sum(dtype=I32), measuring)
         stats = bump(stats, "vabort_cnt", vabort.sum(dtype=I32), measuring)
@@ -409,7 +426,7 @@ def make_tick(cfg: Config, plugin, pool_dev: dict, workload):
             flush_write_ring(data, stats)
 
         stats = bump(stats, "measured_ticks", 1, measuring)
-        return EngineState(txn=txn, db=db, data=data, tables=state.tables,
+        return EngineState(txn=txn, db=db, data=data, tables=tables,
                            stats=stats, tick=t + 1,
                            pool_cursor=(state.pool_cursor + n_free) % Q,
                            ts_counter=ts_counter)
@@ -452,7 +469,7 @@ class Engine:
             txn=TxnState.empty(B, R, A=self.pool.args.shape[1], device=dev),
             db=self.plugin.init_db(cfg, self.n_rows, B, R, device=dev),
             data=torch.zeros(self.n_rows, dtype=I32, device=dev),
-            tables=self.workload.init_tables(cfg, 0),
+            tables=self.workload.init_tables(cfg, 0, device=dev),
             stats=_zeros_stats(B, R, dev),
             tick=0,
             pool_cursor=torch.zeros((), dtype=I32, device=dev),

@@ -41,7 +41,7 @@ MAX_KEYS = 3
 MAX_LANES = 1 << 23
 
 #: kernel launches since the last reset (one per wrapper call on CUDA),
-#: in all and by pack shape (columns, keys)
+#: in all and by pack shape (columns, keys, lanes, shift)
 LAUNCHES = 0
 LAUNCHES_BY_PACK: dict = {}
 
@@ -211,7 +211,7 @@ def _fused_sort_scan_cuda(cols, num_keys: int, shift: int):
             starts.data_ptr(), sidx.data_ptr(), scratch.data_ptr(), stream)
     _raise_on(lib, rc, "kernel launch")
     LAUNCHES += 1
-    pack = (len(cols), num_keys)
+    pack = (len(cols), num_keys, n, shift)
     LAUNCHES_BY_PACK[pack] = LAUNCHES_BY_PACK.get(pack, 0) + 1
     return tuple(outs), starts, sidx
 

@@ -91,10 +91,11 @@ def _iota(x: torch.Tensor) -> torch.Tensor:
 
 
 def segment_starts(sorted_ids: torch.Tensor) -> torch.Tensor:
-    """Boolean mask marking the first element of each equal-id run."""
-    out = sorted_ids != torch.roll(sorted_ids, 1)
-    out[0] = True   # in place on a fresh tensor
-    return out
+    """Boolean mask marking the first element of each equal-id run.  (The
+    first lane is set elementwise: storing one element of a CUDA tensor
+    from the host, ``out[0] = True``, syncs the device.)"""
+    first = _iota(sorted_ids) == 0
+    return (sorted_ids != torch.roll(sorted_ids, 1)) | first
 
 
 def start_index(starts: torch.Tensor) -> torch.Tensor:
@@ -160,8 +161,7 @@ def _seg_scan(vals: torch.Tensor, starts: torch.Tensor, op: str, identity):
     sid = seg_ids(starts)
     incl = _seg_incl(vals, starts, sid, op)
     prev = torch.roll(incl, 1)
-    same_seg = torch.roll(sid, 1) == sid
-    same_seg[0] = False   # in place on a fresh tensor
+    same_seg = (torch.roll(sid, 1) == sid) & (_iota(sid) != 0)
     return torch.where(same_seg, prev, identity)
 
 
@@ -206,9 +206,7 @@ def seg_prefix_min(vals, starts, identity: int):
 
 def _seg_ends(starts: torch.Tensor) -> torch.Tensor:
     """Mask marking the last element of each equal-id run."""
-    out = torch.roll(starts, -1)
-    out[-1] = True   # in place on a fresh tensor
-    return out
+    return torch.roll(starts, -1) | (_iota(starts) == starts.shape[0] - 1)
 
 
 def _seg_suffix_scan(vals, starts, op: str, identity):

@@ -1,14 +1,17 @@
 """Where the time of one tick goes on a CUDA device.
 
     python -m deneva_tpu_torch.profile_tick --cell headline --ticks 50
+    python -m deneva_tpu_torch.profile_tick --cell tpcc --ticks 50
 
 Runs the cell's warm-up, then times ``--ticks`` ticks with CUDA events
-(no profiler attached), then traces the same number of ticks with
-``torch.profiler`` and reports, per tick: device time by kernel, the
-share and launches of the fused sort + scan kernel, the launches of
-``torch.cummax``, kernel launches, and the device's idle share (1 - device
-busy time / tick time).  ``--table PATH`` writes every device kernel of
-the trace.  Needs a CUDA device.
+(no profiler attached), counting the fused kernel's launches by pack,
+then counts the host syncs of the same number of ticks (torch's CUDA sync
+debug mode), then traces them with ``torch.profiler`` and reports, per
+tick: device time by kernel, the share and launches of the fused sort +
+scan kernel, the launches of ``torch.cummax``, kernel launches, host
+syncs, and the device's idle share (1 - device busy time / tick time).
+``--table PATH`` writes every device kernel of the trace.  Needs a CUDA
+device.
 
 ``trace_kernels`` and ``breakdown`` are also what ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` count device kernels with.
@@ -20,11 +23,13 @@ import argparse
 import json
 import sys
 import time
+import warnings
 
 import torch
 
 from deneva_tpu_torch import cells
 from deneva_tpu_torch.engine.scheduler import Engine, timed_run
+from deneva_tpu_torch.ops import fused
 
 #: kernel name of csrc/fused_sort_scan.cu
 SORT_KERNELS = ("fused_sort_scan_kernel",)
@@ -89,6 +94,26 @@ def breakdown(kernels, reps: int) -> dict:
     }
 
 
+def host_syncs(fn, reps: int) -> tuple[float, dict]:
+    """Calls that synchronise the host with the card per call of `fn`, as
+    torch's CUDA sync debug mode reports them (one warning each), in all
+    and by the source line that made them."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for _ in range(reps):
+                fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sites: dict = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{w.filename.rsplit('/', 2)[-1]}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1 / reps
+    return sum(sites.values()), sites
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m deneva_tpu_torch.profile_tick")
     ap.add_argument("--cell", choices=sorted(cells.CELLS), default="headline")
@@ -102,7 +127,10 @@ def main(argv=None) -> int:
 
     eng = Engine(cells.config(args.cell), device="cuda")
     state = eng.run(args.warmup)
+    fused.reset_launches()
     state, per_tick = timed_run(eng, args.ticks, state)
+    by_pack = {"x".join(map(str, k)): v / args.ticks
+               for k, v in sorted(fused.LAUNCHES_BY_PACK.items())}
 
     # host time to enqueue one tick (no synchronisation inside the loop)
     torch.cuda.synchronize()
@@ -117,6 +145,7 @@ def main(argv=None) -> int:
     def tick():
         box[0] = eng.tick(box[0])
 
+    syncs, sync_sites = host_syncs(tick, args.ticks)
     kernels = trace_kernels(tick, args.ticks)
     eng._flush_body(box[0])
 
@@ -136,6 +165,10 @@ def main(argv=None) -> int:
         "device_idle_share": (1.0 - busy_us / tick_us) if busy_us else None,
         "fused_sort_scan_share_of_busy":
             per["fused_sort_scan_us"] / busy_us if busy_us else None,
+        "host_syncs_per_tick": syncs,
+        "host_sync_sites_per_tick": sync_sites,
+        # columns x keys x lanes x shift -> kernel launches per timed tick
+        "fused_sort_scan_launches_by_pack_per_tick": by_pack,
     }
     out.update({f"{k}_per_tick": v for k, v in per.items()})
     print(json.dumps(out))

@@ -49,10 +49,19 @@ class QueryPool:
 
 class WorkloadPlugin:
     """Workload boundary: query generation plus commit-time table effects.
-    The hooks below are YCSB's: no table effects and no user aborts."""
+    The hooks below are YCSB's: no table effects and no user aborts.
+
+    Effects are applied per access entry: ``commit_fields`` computes each
+    committing entry's effect arguments, and ``apply_commit_entries``
+    applies them to the tables (both halves run in the same tick on the
+    single shard)."""
 
     name = "?"
+    #: True if commits change workload tables beyond the engine's per-row
+    #: write-count oracle (TPC-C yes, YCSB no)
     has_effects = False
+    #: names of the per-entry int32 fields ``commit_fields`` returns
+    effect_fields: tuple = ()
 
     def gen_pool(self, cfg) -> QueryPool:
         raise NotImplementedError
@@ -61,9 +70,27 @@ class WorkloadPlugin:
         """Global CC-addressable row-space size (the engine's data table)."""
         raise NotImplementedError
 
-    def init_tables(self, cfg, part: int) -> dict:
+    def init_tables(self, cfg, part: int, device="cpu") -> dict:
+        """Shard ``part``'s tables and insert rings on ``device``."""
         return {}
+
+    def commit_fields(self, cfg, tables: dict, txn, commit) -> dict:
+        """Per-access effect arguments of committing txns: name -> (B, R)
+        int32."""
+        return {}
+
+    def apply_commit_entries(self, cfg, tables: dict, key_local, part,
+                             fields: dict, cts, live) -> dict:
+        """Apply the effects of the (n,) entries where ``live``, ordered
+        within the tick by commit timestamp ``cts``; ``key_local`` are
+        shard-local catalog rows of shard ``part``."""
+        return tables
 
     def user_abort(self, cfg, txn, finishing: torch.Tensor) -> torch.Tensor:
         """Finishing txns that roll back by workload logic: none."""
         return torch.zeros_like(finishing)
+
+    def pool_user_abort(self, cfg, pool: QueryPool) -> np.ndarray:
+        """(Q,) bool: ``user_abort``'s decision per pool row (it depends on
+        the pool only)."""
+        return np.zeros(pool.size, bool)

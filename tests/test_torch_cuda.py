@@ -48,10 +48,12 @@ def _check(cols, num_keys, shift=0):
     assert torch.equal(got[2], want[2])
 
 
-def _device_launches(fn) -> int:
-    """Kernels the card ran for one call of `fn` (torch.profiler)."""
-    return breakdown(trace_kernels(fn, 1, expect_sort=1), 1)[
-        "kernel_launches"]
+def _device_launches(fn, reps=5) -> float:
+    """Kernels the card ran per launch of the fused kernel, over `reps`
+    traced calls of `fn` (torch.profiler, which has been seen to drop a
+    kernel event of a trace)."""
+    per = breakdown(trace_kernels(fn, reps, expect_sort=reps), reps)
+    return per["kernel_launches"] / per["fused_sort_scan_launches"]
 
 
 @pytest.mark.parametrize("n,num_keys,n_cols", [
@@ -75,6 +77,20 @@ def test_kernel_shift_matches_plain(dev, n, num_keys, n_cols):
 def test_one_device_launch_per_call(dev, n):
     cols = _cols(dev, n, 2, 3)
     assert _device_launches(lambda: fused.fused_sort_scan(cols, 2, 1)) == 1
+
+
+#: the packs a TPC-C tick adds (workloads/tpcc.py): the effect compaction
+#: at B*R = 270,336 lanes (8 columns), the o_id rank at B = 8192 and the
+#: restock chain and ring appends at K = 17,408 (3 columns each)
+TPCC_PACKS = [(270_336, 2, 8), (8192, 2, 3), (17_408, 2, 3)]
+
+
+@pytest.mark.parametrize("n,num_keys,n_cols", TPCC_PACKS)
+def test_tpcc_pack_matches_plain_in_one_launch(dev, n, num_keys, n_cols):
+    cols = _cols(dev, n, num_keys, n_cols, hi=1 << 20)
+    _check(cols, num_keys)
+    assert _device_launches(
+        lambda: fused.fused_sort_scan(cols, num_keys)) == 1
 
 
 def test_grid_with_several_tiles_per_block(dev):
@@ -101,6 +117,72 @@ def test_gate_raises_on_ineligible_cuda_pack(dev, case):
         fused.maybe_fused_sort(Config(fused_arbitrate=True), ops, nk)
     assert fused.LAUNCHES == before
     assert fused.fallback_snapshot()["count"] == 0
+
+
+@pytest.mark.parametrize("live_frac,branch,launches",
+                         [(0.3, "compact", 5), (0.9, "full", 4)])
+def test_tpcc_effects_cuda_match_cpu(dev, live_frac, branch, launches):
+    # random effect entries of every role, with repeated stock rows, at
+    # n = 17,000 > K = 8192 lanes: few enough live entries take the
+    # compacted body (compaction, restock chain and 3 ring appends), more
+    # the full-width body (no compaction sort)
+    from deneva_tpu_torch.ops import segment as seg
+    from deneva_tpu_torch.workloads import tpcc
+    cfg = Config(workload="TPCC", batch_size=512, admit_cap=16, num_wh=8,
+                 cust_per_dist=1000, max_items=128, fused_arbitrate=True)
+    cat = tpcc.catalog(cfg)
+    rng = np.random.default_rng(7)
+    n = 17000
+    roles = rng.integers(0, 6, n)        # ROLE_NONE .. ROLE_S_NO
+    key = np.zeros(n, np.int64)
+    for role, tab in ((1, "WAREHOUSE"), (2, "DISTRICT"), (3, "CUSTOMER"),
+                      (4, "DISTRICT"), (5, "STOCK")):
+        m = roles == role
+        t = cat.tables[tab]
+        key[m] = t.base + rng.integers(0, t.n_local, int(m.sum()))
+    dw = rng.integers(0, 10, n) | (rng.integers(0, 8, n) << 4)
+    cols = dict(role=np.where(roles > 0, roles | (dw << 3), 0),
+                earg=rng.integers(0, 1 << 10, n),
+                earg2=rng.integers(0, 1 << 10, n), key=key,
+                cts=rng.permutation(n) + 1)
+    live = (roles > 0) & (rng.random(n) < live_frac)
+    out = {}
+    for d in ("cpu", dev):
+        t = {k: torch.from_numpy(v.astype(np.int32)).to(d)
+             for k, v in cols.items()}
+        wl = tpcc.TPCCWorkload()
+        fused.reset_launches()
+        with seg.fused_scope(cfg):
+            out[str(d)] = wl.apply_commit_entries(
+                cfg, wl.init_tables(cfg, 0, device=d), t["key"], 0,
+                {f: t[f] for f in wl.effect_fields}, t["cts"],
+                torch.from_numpy(live).to(d))
+        assert wl.branch_ticks[branch] == 1
+    assert fused.LAUNCHES == launches
+    gpu, cpu = out[str(dev)], out["cpu"]
+    for k in cpu:
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+
+
+def test_tpcc_engine_cuda_matches_cpu(dev):
+    # B*R = 16,896 > K = 8192: every tick compacts its effects, so a tick
+    # makes 8 kernel launches
+    cfg = Config(workload="TPCC", batch_size=512, admit_cap=64, num_wh=32,
+                 cust_per_dist=1000, max_items=128, query_pool_size=4096,
+                 fused_arbitrate=True)
+    gpu = Engine(cfg, device=dev)
+    cpu = Engine(cfg, pool=gpu.pool, device="cpu")
+    fused.reset_launches()
+    sg = gpu.run(40)
+    assert fused.LAUNCHES == 8 * 40
+    sc = cpu.run(40)
+    assert gpu.summary(sg) == cpu.summary(sc)
+    assert gpu.summary(sg)["txn_cnt"] > 0
+    assert torch.equal(sg.data.cpu(), sc.data)
+    for k in sc.tables:
+        assert torch.equal(sg.tables[k].cpu(), sc.tables[k]), k
+    assert gpu.workload.branch_ticks == cpu.workload.branch_ticks \
+        == {"compact": 40, "full": 0}
 
 
 def test_engine_cuda_matches_cpu(dev):

@@ -21,7 +21,9 @@ MODULES = (
     "deneva_tpu_torch", "deneva_tpu_torch.config", "deneva_tpu_torch.cells",
     "deneva_tpu_torch.stats", "deneva_tpu_torch.__main__",
     "deneva_tpu_torch.workloads", "deneva_tpu_torch.workloads.base",
-    "deneva_tpu_torch.workloads.ycsb", "deneva_tpu_torch.engine.state",
+    "deneva_tpu_torch.workloads.ycsb", "deneva_tpu_torch.workloads.tpcc",
+    "deneva_tpu_torch.storage", "deneva_tpu_torch.storage.catalog",
+    "deneva_tpu_torch.engine.state",
     "deneva_tpu_torch.engine.scheduler", "deneva_tpu_torch.ops.segment",
     "deneva_tpu_torch.ops.fused", "deneva_tpu_torch.ops.cuda_build",
     "deneva_tpu_torch.cc", "deneva_tpu_torch.cc.base",
@@ -76,7 +78,9 @@ def test_cpu_engine_runs():
 OUTSIDE = {
     "wait_die": dict(cc_alg="WAIT_DIE"),
     "occ": dict(cc_alg="OCC"),
-    "tpcc": dict(workload="TPCC"),
+    "pps": dict(workload="PPS"),
+    # TPC-C is ported on one shard only
+    "tpcc": dict(workload="TPCC", part_cnt=2),
     "read_committed": dict(isolation_level="READ_COMMITTED"),
     "nocc_mode": dict(mode="NOCC"),
     "sub_ticks": dict(sub_ticks=2),
