@@ -60,20 +60,37 @@ UNIT_WIDTHS = (1, 2, 7, 64, 96, 128, 130, 6007)
 TRACE_TICKS = 10
 TPCC_TICKS = 300
 TPCC_CPU_TICKS = 40
-TPCC_B = 8192                # batch size of the tpcc cell
-TPCC_N = TPCC_B * 33         # its B * R lock entries (R = 3 + 2*15)
-TPCC_K = 1024 * 17           # its compacted effect lanes: admit_cap * 17
-#: every pack the two cells' ticks sort, as (columns, keys, lanes, shift)
+#: the packs a headline tick sorts, as (columns, keys, lanes, shift)
 PACK_NAMES = {
     (3, 2, MAIN_N, 1): "headline lock sort",
     (2, 1, MAIN_N, 0): "headline unpermute",
-    (3, 2, TPCC_N, 1): "tpcc lock sort",
-    (2, 1, TPCC_N, 0): "tpcc unpermute",
-    (8, 2, TPCC_N, 0): "tpcc effect compaction",
-    (3, 2, TPCC_B, 0): "tpcc o_id rank",
-    (3, 2, TPCC_K, 0): "tpcc restock chain + 3 ring appends",
-    (3, 2, TPCC_N, 0): "tpcc restock chain + 3 ring appends, full width",
 }
+
+
+def tpcc_packs(eng):
+    """The packs a tick of the TPC-C engine `eng` sorts, by (columns,
+    keys, lanes, shift), and the kernel launches a tick makes of each
+    when it takes the compacted (K-lane) or the full-width effect body.
+    B*R lanes are those of the engine's pool; K is the workload's."""
+    from deneva_tpu_torch.workloads import tpcc
+    B = eng.cfg.batch_size
+    N = B * eng.pool.max_req
+    K = tpcc.effect_lanes(eng.cfg, N)
+    names = {
+        (3, 2, N, 1): "tpcc lock sort",
+        (2, 1, N, 0): "tpcc unpermute (+ 3 full-width ring appends)",
+        (8, 2, N, 0): "tpcc effect compaction",
+        (2, 1, B, 0): "tpcc o_id rank",
+        (3, 2, K, 0): "tpcc restock chain",
+        (2, 1, K, 0): "tpcc ring appends",
+        (3, 2, N, 0): "tpcc restock chain, full width",
+    }
+    every = {(3, 2, N, 1): 1, (2, 1, N, 0): 1, (2, 1, B, 0): 1}
+    compact = dict(every)
+    compact.update({(8, 2, N, 0): 1, (3, 2, K, 0): 1, (2, 1, K, 0): 3})
+    full = dict(every)
+    full.update({(3, 2, N, 0): 1, (2, 1, N, 0): 4})
+    return names, compact, full
 
 
 def say(phase: str, msg: str) -> None:
@@ -130,16 +147,15 @@ def cuda_ms(fn, reps=50, warm=5):
 
 
 def device_ms(fn, reps=20, expect_sort=None):
-    """Device time of one call of `fn` and the device kernels it runs: the
-    sums over its kernels in a torch.profiler trace of `reps` calls.
-    Unlike `cuda_ms`, the time leaves out the host's gaps between
-    launches.  With `expect_sort` (a call of the fused kernel), both are
-    taken per launch of the fused kernel the trace holds, since the
-    profiler has been seen to drop a kernel event of a trace."""
+    """Device time of one call of `fn`, the device kernels it runs and the
+    launches of the fused kernel among them: the sums over its kernels in
+    a torch.profiler trace of `reps` calls, divided by `reps`.  Unlike
+    `cuda_ms`, the time leaves out the host's gaps between launches.
+    `expect_sort` goes to `trace_kernels`."""
     from deneva_tpu_torch.profile_tick import breakdown, trace_kernels
     per = breakdown(trace_kernels(fn, reps, expect_sort), reps)
-    calls = per["fused_sort_scan_launches"] if expect_sort else 1
-    return per["device_busy_us"] / calls / 1e3, per["kernel_launches"] / calls
+    return (per["device_busy_us"] / 1e3, per["kernel_launches"],
+            per["fused_sort_scan_launches"])
 
 
 def compare(fused, cols, num_keys, shift=0):
@@ -254,15 +270,16 @@ def measure_pack(fused, name, cols, nk, shift):
     before = (fused.LAUNCHES, dict(fused.LAUNCHES_BY_PACK))
     call = lambda: fused.fused_sort_scan(cols, nk, shift)
     ms = cuda_ms(call)
-    dev_ms, dev_launches = device_ms(call, expect_sort=20)
+    dev_ms, dev_launches, sort_launches = device_ms(call, expect_sort=20)
     fused.LAUNCHES, fused.LAUNCHES_BY_PACK = before[0], before[1]
-    if dev_launches != 1:
-        raise AssertionError(f"{name}: {dev_launches} device kernels "
-                             "per call, expected 1")
+    if (dev_launches, sort_launches) != (1, 1):
+        raise AssertionError(f"{name}: {dev_launches} device kernels, "
+                             f"{sort_launches} of them the fused kernel, "
+                             "per call; expected 1 and 1")
     plain_ms = cuda_ms(lambda: fused.fused_sort_scan_plain(cols, nk, shift))
     lib_fn = library_call(cols, nk)
     library_ms = cuda_ms(lib_fn)
-    library_dev_ms, _ = device_ms(lib_fn)
+    library_dev_ms = device_ms(lib_fn)[0]
     bms, by = bound_ms(n, len(cols), nk)
     say("kernel", f"{name} n={n} shift={shift}: launch plan "
         f"grid={plan['grid']} blocks x {plan['threads']} threads, tile="
@@ -372,43 +389,18 @@ def capture_packs(fused, fn):
     return got
 
 
-def tpcc_checksums(tpcc, tables):
-    """Sums of the TPC-C columns the conservation laws read (int64)."""
-    cols = ("w_ytd", "d_ytd", "d_next_o_id", "c_balance", "c_ytd_payment",
-            "c_payment_cnt", "h_amount", "hist_cursor", "order_cursor",
-            "ol_cursor", "o_ol_cnt", "s_order_cnt", "s_ytd", "ol_quantity")
-    return {c: int(tpcc.ring_view(tables, c).to(torch.int64).sum().item())
-            for c in cols}
-
-
-def check_tpcc_conservation(cfg, init, fin, s):
-    """TPC-C's money and order conservation (tests/test_tpcc.py): every
-    committed Payment moves h_amount through W_YTD, D_YTD, C_BALANCE,
-    C_YTD_PAYMENT and HISTORY; every committed NewOrder advances
-    D_NEXT_O_ID once and appends its ORDER and ORDER-LINE rows.  A law
-    that sums an insert ring's contents holds only while that ring has
-    not wrapped (the rings start empty).  Returns the Payments, the
-    NewOrders and the names of the laws checked."""
-    d = {k: fin[k] - init[k] for k in init}
-    payments, neworders = d["c_payment_cnt"], d["d_next_o_id"]
-    laws = {
-        "commits": payments + neworders == s["txn_cnt"],
-        "money": d["d_ytd"] == -d["c_balance"] == d["c_ytd_payment"]
-        and d["w_ytd"] == (d["d_ytd"] if cfg.wh_update else 0),
-        "history": d["hist_cursor"] == payments,
-        "orders": d["order_cursor"] == neworders,
-        "order lines": d["ol_cursor"] == d["s_order_cnt"],
-    }
-    if fin["hist_cursor"] <= cfg.tpcc_hist_cap:
-        laws["history money"] = d["h_amount"] == d["d_ytd"]
-    if fin["order_cursor"] <= cfg.tpcc_max_orders:
-        laws["order line counts"] = d["o_ol_cnt"] == d["ol_cursor"]
-    if fin["ol_cursor"] <= cfg.tpcc_ol_cap:
-        laws["stock ytd"] = d["s_ytd"] == d["ol_quantity"]
+def check_tpcc_conservation(tpcc, cfg, init, tables, s):
+    """TPC-C's conservation laws (``tpcc.conservation``) from the
+    checksums `init` to those of `tables`; raises if one is broken.
+    Returns the Payments, the NewOrders and the names of the laws
+    checked (those of a wrapped ring are left out)."""
+    fin = tpcc.checksums(tables)
+    laws = tpcc.conservation(cfg, init, fin, s)
     broken = [k for k, ok in laws.items() if not ok]
     if broken:
-        raise AssertionError(f"TPC-C conservation broken: {broken} {d}")
-    return payments, neworders, sorted(laws)
+        raise AssertionError(f"TPC-C conservation broken: {broken}")
+    return (fin["c_payment_cnt"] - init["c_payment_cnt"],
+            fin["d_next_o_id"] - init["d_next_o_id"], sorted(laws))
 
 
 def phase_tpcc(cells, Engine, timed_run, fused, dev):
@@ -430,7 +422,8 @@ def phase_tpcc(cells, Engine, timed_run, fused, dev):
     say("tpcc", f"query pool ({eng.pool.size} txns, {eng.n_rows} catalog "
         f"rows) generated and uploaded in {pool_s:.2f} s; tables "
         f"({mb:.1f} MB on the card) built in {tables_s:.2f} s")
-    init = tpcc_checksums(tpcc, state.tables)
+    init = tpcc.checksums(state.tables)
+    names, per_compact, per_full = tpcc_packs(eng)
     wl = eng.workload
     state = eng.run(WARMUP_TICKS, state)
     before = eng.summary(state)["txn_cnt"]
@@ -462,16 +455,13 @@ def phase_tpcc(cells, Engine, timed_run, fused, dev):
         f"{fused.LAUNCHES} ({fused.LAUNCHES / TPCC_TICKS:g} per tick), "
         f"fallbacks={snap['count']}")
     for pack, cnt in sorted(by_pack.items()):
-        say("tpcc", f"  {PACK_NAMES.get(pack, pack)} {pack}: {cnt} "
+        say("tpcc", f"  {names.get(pack, pack)} {pack}: {cnt} "
             f"launches, {cnt / TPCC_TICKS:g} per tick")
-    T = TPCC_TICKS
-    want = {(3, 2, TPCC_N, 1): T, (2, 1, TPCC_N, 0): T,
-            (3, 2, TPCC_B, 0): T}
-    if c:
-        want.update({(8, 2, TPCC_N, 0): c, (3, 2, TPCC_K, 0): 4 * c})
-    if f:
-        want[(3, 2, TPCC_N, 0)] = 4 * f
-    if c + f != T or by_pack != want:
+    want = {}
+    for ticks, per_tick in ((c, per_compact), (f, per_full)):
+        for pack, k in per_tick.items() if ticks else ():
+            want[pack] = want.get(pack, 0) + k * ticks
+    if c + f != TPCC_TICKS or by_pack != want:
         raise AssertionError(f"tpcc launches by pack {by_pack} != {want} "
                              f"for {c} compact and {f} full ticks")
     if snap["count"] != 0:
@@ -479,7 +469,7 @@ def phase_tpcc(cells, Engine, timed_run, fused, dev):
     if int(state.data.sum().item()) != s["write_cnt"]:
         raise AssertionError("data.sum() != write_cnt on the tpcc run")
     payments, neworders, laws = check_tpcc_conservation(
-        cfg, init, tpcc_checksums(tpcc, state.tables), s)
+        tpcc, cfg, init, state.tables, s)
     if not (payments > 0 and neworders > 0 and math.isfinite(tick_ms)):
         raise AssertionError("the tpcc run committed no Payment or NewOrder")
     say("tpcc", f"conservation holds ({', '.join(laws)}): {payments} "
@@ -497,7 +487,8 @@ def phase_tpcc(cells, Engine, timed_run, fused, dev):
         box[0] = eng.tick(box[0])
         per_call.append(fused.LAUNCHES - n0)
 
-    per = breakdown(trace_kernels(tick, TRACE_TICKS, 7 * TRACE_TICKS),
+    per = breakdown(trace_kernels(tick, TRACE_TICKS,
+                                  lambda: sum(per_call[-TRACE_TICKS:])),
                     TRACE_TICKS)
     counted = sum(per_call[-TRACE_TICKS:]) / TRACE_TICKS
     say("trace", f"{TRACE_TICKS} tpcc ticks (torch.profiler): "
@@ -518,7 +509,7 @@ def phase_tpcc(cells, Engine, timed_run, fused, dev):
                              f"step per tick, saw {syncs} at {sites}")
     packs = capture_packs(fused, tick)
     eng._flush_body(box[0])
-    return eng.pool, by_pack, packs
+    return eng.pool, by_pack, packs, names
 
 
 def phase_tpcc_cpu_match(cells, Engine, dev, pool):
@@ -526,7 +517,7 @@ def phase_tpcc_cpu_match(cells, Engine, dev, pool):
     cfg = cells.config("tpcc")
     gpu = Engine(cfg, pool=pool, device=dev)
     cpu = Engine(cfg, pool=pool, device="cpu")
-    init = tpcc_checksums(tpcc, cpu.init_state().tables)
+    init = tpcc.checksums(cpu.init_state().tables)
     sg = gpu.run(TPCC_CPU_TICKS)
     t0 = time.perf_counter()
     sc = cpu.run(TPCC_CPU_TICKS)
@@ -544,8 +535,7 @@ def phase_tpcc_cpu_match(cells, Engine, dev, pool):
         raise AssertionError(f"tpcc CUDA and CPU tables differ: {bad}")
     if gpu.workload.branch_ticks != cpu.workload.branch_ticks:
         raise AssertionError("tpcc CUDA and CPU took other effect bodies")
-    _, _, laws = check_tpcc_conservation(
-        cfg, init, tpcc_checksums(tpcc, sc.tables), b)
+    _, _, laws = check_tpcc_conservation(tpcc, cfg, init, sc.tables, b)
     say("cpu", f"tpcc {TPCC_CPU_TICKS} ticks: CUDA and CPU summary dicts, "
         f"data and all {len(sc.tables)} tables equal (txn_cnt="
         f"{b['txn_cnt']}, user_abort_cnt={b['user_abort_cnt']}, "
@@ -595,22 +585,23 @@ def main() -> int:
     rows = phase_kernel(fused, dev)
     by_pack = phase_headline(cells, Engine, timed_run, fused, dev)
     phase_cpu_match(cells, Engine, dev)
-    pool, tpcc_by_pack, packs = phase_tpcc(cells, Engine, timed_run, fused,
-                                           dev)
+    pool, tpcc_by_pack, packs, tpcc_names = phase_tpcc(
+        cells, Engine, timed_run, fused, dev)
+    names = {**PACK_NAMES, **tpcc_names}
     for pack, cols in sorted(packs.items()):
-        if pack not in PACK_NAMES:
+        if pack not in tpcc_names:
             raise AssertionError(f"the tpcc tick sorted an unnamed pack "
                                  f"{pack}")
-        rows[pack] = measure_pack(fused, PACK_NAMES[pack], cols, pack[1],
+        rows[pack] = measure_pack(fused, names[pack], cols, pack[1],
                                   pack[3])
     phase_tpcc_cpu_match(cells, Engine, dev, pool)
 
     by_pack.update(tpcc_by_pack)
     kernels = []
-    for pack, r in sorted(rows.items(), key=lambda kv: PACK_NAMES[kv[0]]):
+    for pack, r in sorted(rows.items(), key=lambda kv: names[kv[0]]):
         n_in, nk, n, shift = pack
         kernels.append({
-            "name": f"fused_sort_scan[{PACK_NAMES[pack]} {n_in}x{nk} n={n}"
+            "name": f"fused_sort_scan[{names[pack]} {n_in}x{nk} n={n}"
                     f" shift={shift}]",
             "route": "cuda",
             "source": "deneva_tpu_torch/csrc/fused_sort_scan.cu",

@@ -60,22 +60,24 @@ def launches_of(kernels, names) -> int:
 
 def trace_kernels(fn, reps: int, expect_sort=None) -> list:
     """The device kernels of `reps` calls of `fn` (after one untraced call)
-    in one torch.profiler trace.  The profiler has been seen to drop a few
-    kernel events of a trace on an H100 host; when `expect_sort` is given,
-    a trace with fewer launches of the fused kernel than that is taken
-    again, up to three times."""
+    in one torch.profiler trace.  The profiler has been seen to drop a
+    kernel event of a trace on an H100 host.  When `expect_sort` is given
+    (the fused kernel's launches the `reps` calls make, or a function that
+    returns them after the calls), a trace that holds another count of
+    the kernel's launches is taken again, up to five times in all; the
+    last trace is returned, and the caller checks its counts."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    for _ in range(5):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         kernels = device_kernels(prof)
-        if expect_sort is None or \
-                launches_of(kernels, SORT_KERNELS) >= expect_sort:
+        want = expect_sort() if callable(expect_sort) else expect_sort
+        if want is None or launches_of(kernels, SORT_KERNELS) == want:
             break
     return kernels
 

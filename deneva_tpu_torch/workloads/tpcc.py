@@ -136,6 +136,49 @@ def ring_view(tables: dict, col: str):
     return tables[col]
 
 
+def effect_lanes(cfg: Config, n: int) -> int:
+    """K, the lanes of the compacted effect body for n = B*R entries: a
+    txn has at most max_items_per_txn + 2 effect roles, and commits per
+    tick do not exceed admissions in steady state."""
+    acap = cfg.admit_cap if cfg.admit_cap is not None else cfg.batch_size
+    return min(n, max(8192, acap * (cfg.max_items_per_txn + 2)))
+
+
+def checksums(tables: dict) -> dict:
+    """int64 sum of every table and of every column of the packed blocks
+    (under its legacy name): what ``conservation`` compares."""
+    blocks = {blk for blk, _ in RING_COLS.values()}
+    names = [k for k in tables if k not in blocks] + list(RING_COLS)
+    return {k: int(ring_view(tables, k).to(I64).sum()) for k in names}
+
+
+def conservation(cfg: Config, init: dict, fin: dict, summary: dict) -> dict:
+    """TPC-C's money and order conservation between two ``checksums`` of
+    one run whose insert rings started empty, law -> holds.  Every
+    committed Payment moves h_amount through W_YTD, D_YTD, C_BALANCE,
+    C_YTD_PAYMENT and HISTORY; every committed NewOrder advances
+    D_NEXT_O_ID once and appends one ORDER row and its ORDER-LINE rows.  A
+    law that sums a ring's contents is left out once that ring has
+    wrapped (its cursor passed its capacity)."""
+    d = {k: fin[k] - init[k] for k in init}
+    payments, neworders = d["c_payment_cnt"], d["d_next_o_id"]
+    laws = {
+        "commits": payments + neworders == summary["txn_cnt"],
+        "money": d["d_ytd"] == -d["c_balance"] == d["c_ytd_payment"]
+        and d["w_ytd"] == (d["d_ytd"] if cfg.wh_update else 0),
+        "history": d["hist_cursor"] == payments,
+        "orders": d["order_cursor"] == neworders,
+        "order lines": d["ol_cursor"] == d["s_order_cnt"],
+    }
+    if fin["hist_cursor"] <= cfg.tpcc_hist_cap:
+        laws["history money"] = d["h_amount"] == d["d_ytd"]
+    if fin["order_cursor"] <= cfg.tpcc_max_orders:
+        laws["order line counts"] = d["o_ol_cnt"] == d["ol_cursor"]
+    if fin["ol_cursor"] <= cfg.tpcc_ol_cap:
+        laws["stock ytd"] = d["s_ytd"] == d["ol_quantity"]
+    return laws
+
+
 def _wh_local(w, P):
     """(w-1) // P: local warehouse index on shard wh_to_part(w)=(w-1)%P."""
     return (w - 1) // P
@@ -466,8 +509,8 @@ class TPCCWorkload(WorkloadPlugin):
         dloc = cat.local("DISTRICT", txn.keys[:, 2])  # slot 2 = district
         dkey = torch.where(is_no, dloc, OOB)
         slot = _iota(B, dev)
-        (_, _, sslot), _, sidx = seg.sort_pack_scan((dkey, slot, slot),
-                                                    num_keys=2)
+        # the sort is stable: same-district slots keep their order
+        (_, sslot), _, sidx = seg.sort_pack_scan((dkey, slot), num_keys=1)
         rank = _unpermute(sslot, slot - sidx)
         d_next = tables["d_next_o_id"][torch.where(is_no, dloc, 0).to(I64)]
         o_id = torch.where(is_no, d_next + rank, 0)
@@ -501,10 +544,7 @@ class TPCCWorkload(WorkloadPlugin):
         n = key_local.shape[0]
         role_f = fields["role"]
         eff = live & ((role_f & 7) != ROLE_NONE)
-        # K: a txn has at most max_items_per_txn + 2 effect roles, and
-        # commits per tick do not exceed admissions in steady state
-        acap = cfg.admit_cap if cfg.admit_cap is not None else cfg.batch_size
-        K = min(n, max(8192, acap * (cfg.max_items_per_txn + 2)))
+        K = effect_lanes(cfg, n)
         compact = K < n and int(eff.sum(dtype=I32).item()) <= K
         self.branch_ticks["compact" if compact else "full"] += 1
         if not compact:
@@ -585,7 +625,7 @@ class TPCCWorkload(WorkloadPlugin):
         def ring_append(mask, cursor_key, cap, block_key, cols: list):
             cnt = mask.sum(dtype=I32)
             pri = torch.where(mask, cts, OOB)
-            _, _, pidx = seg.sort_pack((pri, lanes, lanes), num_keys=2)
+            _, pidx = seg.sort_pack((pri, lanes), num_keys=1)   # stable
             r = _unpermute(pidx, lanes)
             # masked lanes sort first, so their ranks are 0..cnt-1; under
             # wrap the ring keeps the LAST cap records
