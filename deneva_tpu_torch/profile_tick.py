@@ -47,10 +47,12 @@ def device_us(evt) -> float:
 
 
 def device_kernels(prof) -> list:
-    """The ``key_averages()`` rows of a trace that ran on the card."""
+    """The ``key_averages()`` rows of a trace that ran on the card, less
+    the span the profiler's schedule puts around each recorded step."""
     return [e for e in prof.key_averages()
             if device_us(e) > 0
-            and e.device_type == torch.autograd.DeviceType.CUDA]
+            and e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
 
 
 def launches_of(kernels, names) -> int:
@@ -59,22 +61,27 @@ def launches_of(kernels, names) -> int:
 
 
 def trace_kernels(fn, reps: int, expect_sort=None) -> list:
-    """The device kernels of `reps` calls of `fn` (after one untraced call)
-    in one torch.profiler trace.  The profiler has been seen to drop a
-    kernel event of a trace on an H100 host.  When `expect_sort` is given
-    (the fused kernel's launches the `reps` calls make, or a function that
-    returns them after the calls), a trace that holds another count of
-    the kernel's launches is taken again, up to five times in all; the
-    last trace is returned, and the caller checks its counts."""
-    fn()
-    torch.cuda.synchronize()
+    """The device kernels of `reps` calls of `fn` in one torch.profiler
+    trace.  On an H100 host the profiler misses the first kernel launched
+    in most traces, however long after the trace's start, so the trace
+    has a warm-up step: `reps` calls of `fn` with the device tracing on
+    and their events thrown away, then the `reps` calls that are
+    recorded.  A few traces still lose or gain kernels (a whole step's,
+    or one of the warm-up's).  When `expect_sort` is given (the fused
+    kernel's launches the recorded calls make, or a function that returns
+    them after the calls), a trace that holds another count of the
+    kernel's launches is taken again, up to ten times in all; the last
+    trace is returned, and the caller checks its counts."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(5):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    for _ in range(10):
+        with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+            for _step in ("warm-up", "recorded"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         kernels = device_kernels(prof)
         want = expect_sort() if callable(expect_sort) else expect_sort
         if want is None or launches_of(kernels, SORT_KERNELS) == want:
@@ -142,13 +149,16 @@ def main(argv=None) -> int:
     host_per_tick = (time.perf_counter() - h0) / args.ticks
     torch.cuda.synchronize()
 
-    box = [state]
+    box, per_call = [state], []
 
     def tick():
+        n0 = fused.LAUNCHES
         box[0] = eng.tick(box[0])
+        per_call.append(fused.LAUNCHES - n0)
 
     syncs, sync_sites = host_syncs(tick, args.ticks)
-    kernels = trace_kernels(tick, args.ticks)
+    kernels = trace_kernels(tick, args.ticks,
+                            lambda: sum(per_call[-args.ticks:]))
     eng._flush_body(box[0])
 
     per = breakdown(kernels, args.ticks)
