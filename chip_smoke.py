@@ -27,7 +27,22 @@ Phases, each printing one line:
   7. every pack one tpcc tick sorts, captured from the tick, held
      bit-equal to the plain version and timed as in phase 3;
   8. the tpcc cell on the port's CPU path: summary, data and every table
-     equal to a CUDA run of the same length.
+     equal to a CUDA run of the same length;
+  9. the pps cell (PPS at the Config defaults, 23,575 catalog rows,
+     B=8192, R=21, NO_WAIT, fused_arbitrate) on CUDA, as phase 6: build
+     times, the [summary] line, commits per tick, abort rate, tick time,
+     launches per tick by pack against the effect bodies, 0 fallbacks,
+     PART_AMOUNT conservation (every committed ORDERPRODUCT part write
+     lowers the sum by 1, every UPDATEPART raises it by 100), a traced
+     window, and 1 host sync per tick (the effect count);
+ 10. every pack one pps tick sorts, captured from the tick, held bit-equal
+     to the plain version and timed as in phase 3;
+ 11. the pps cell on the port's CPU path: summary, data and both tables
+     equal to a CUDA run of the same length;
+ 12. WAIT_DIE: the pps_wait_die cell on CUDA (waits happen, launches by
+     pack, tick time, WAIT_DIE's library scans per tick, 1 host sync per
+     tick), then CPU == CUDA on pps_wait_die and on the headline and tpcc
+     cells under WAIT_DIE (fewer ticks, see WD_CPU_TICKS).
 Then one JSON line of per-kernel numbers (one entry per pack) and the final
 ``{"ok": true, "device": {...}}`` line.  Any failure raises and exits
 nonzero; without a CUDA device it exits nonzero before printing a result.
@@ -60,6 +75,10 @@ UNIT_WIDTHS = (1, 2, 7, 64, 96, 128, 130, 6007)
 TRACE_TICKS = 10
 TPCC_TICKS = 300
 TPCC_CPU_TICKS = 40
+PPS_TICKS = 300
+PPS_CPU_TICKS = 40
+#: ticks of the CPU == CUDA checks under WAIT_DIE, by cell
+WD_CPU_TICKS = {"pps_wait_die": 40, "headline": 20, "tpcc": 20}
 #: the packs a headline tick sorts, as (columns, keys, lanes, shift)
 PACK_NAMES = {
     (3, 2, MAIN_N, 1): "headline lock sort",
@@ -90,6 +109,28 @@ def tpcc_packs(eng):
     compact.update({(8, 2, N, 0): 1, (3, 2, K, 0): 1, (2, 1, K, 0): 3})
     full = dict(every)
     full.update({(3, 2, N, 0): 1, (2, 1, N, 0): 4})
+    return names, compact, full
+
+
+def pps_packs(eng):
+    """The packs a tick of the PPS engine `eng` sorts, by (columns, keys,
+    lanes, shift), and the kernel launches a tick makes of each when it
+    takes the compacted (K-lane) or the full-width effect body."""
+    from deneva_tpu_torch.workloads import pps
+    N = eng.cfg.batch_size * eng.pool.max_req
+    K = pps.effect_lanes(eng.cfg, N)
+    names = {
+        (3, 2, N, 1): "pps lock sort",
+        (2, 1, N, 0): "pps unpermute",
+        (6, 1, N, 0): "pps effect compaction",
+        (3, 2, K, 0): "pps USES last-writer-wins",
+        (3, 2, N, 0): "pps USES last-writer-wins, full width",
+    }
+    every = {(3, 2, N, 1): 1, (2, 1, N, 0): 1}
+    compact = dict(every)
+    compact.update({(6, 1, N, 0): 1, (3, 2, K, 0): 1})
+    full = dict(every)
+    full.update({(3, 2, N, 0): 1})
     return names, compact, full
 
 
@@ -403,12 +444,15 @@ def check_tpcc_conservation(tpcc, cfg, init, tables, s):
             fin["d_next_o_id"] - init["d_next_o_id"], sorted(laws))
 
 
-def phase_tpcc(cells, Engine, timed_run, fused, dev):
-    """The tpcc cell at full scale on the card: build times, 300 ticks in
-    windows, launches per tick by pack against the branch counts, the
-    conservation laws, a traced window, and the captured packs."""
-    from deneva_tpu_torch.workloads import tpcc
-    cfg = cells.config("tpcc")
+def run_effect_cell(cells, name, Engine, timed_run, fused, dev, packs_fn,
+                    ticks, snapshot):
+    """Build the cell `name` on the card (pool and tables timed), take
+    ``snapshot`` of its initial tables, warm it up, and run `ticks` ticks
+    in windows timed with CUDA events.  Checks the kernel's launches by
+    pack against the effect bodies the ticks took (``packs_fn``), and 0
+    fallbacks.  Returns the engine, the state, the snapshot and a record
+    of the run."""
+    cfg = cells.config(name)
     t0 = time.perf_counter()
     eng = Engine(cfg, device=dev)
     torch.cuda.synchronize(dev)
@@ -419,11 +463,11 @@ def phase_tpcc(cells, Engine, timed_run, fused, dev):
     tables_s = time.perf_counter() - t0
     mb = sum(v.numel() * v.element_size()
              for v in state.tables.values()) / 2**20
-    say("tpcc", f"query pool ({eng.pool.size} txns, {eng.n_rows} catalog "
+    say(name, f"query pool ({eng.pool.size} txns, {eng.n_rows} catalog "
         f"rows) generated and uploaded in {pool_s:.2f} s; tables "
         f"({mb:.1f} MB on the card) built in {tables_s:.2f} s")
-    init = tpcc.checksums(state.tables)
-    names, per_compact, per_full = tpcc_packs(eng)
+    init = snapshot(state.tables)
+    names, per_compact, per_full = packs_fn(eng)
     wl = eng.workload
     state = eng.run(WARMUP_TICKS, state)
     before = eng.summary(state)["txn_cnt"]
@@ -432,10 +476,11 @@ def phase_tpcc(cells, Engine, timed_run, fused, dev):
     fused.reset_launches()
     branch0 = dict(wl.branch_ticks)
     window_ms = []
-    for _ in range(TPCC_TICKS // WINDOW_TICKS):
+    for _ in range(ticks // WINDOW_TICKS):
         state, per_tick = timed_run(eng, WINDOW_TICKS, state)
         window_ms.append(per_tick * 1e3)
     by_pack = dict(fused.LAUNCHES_BY_PACK)
+    launches = fused.LAUNCHES
     snap = fused.fallback_snapshot()
     branch = {k: v - branch0[k] for k, v in wl.branch_ticks.items()}
     peak = torch.cuda.max_memory_allocated(dev)
@@ -443,41 +488,44 @@ def phase_tpcc(cells, Engine, timed_run, fused, dev):
     commits = s["txn_cnt"] - before
     tick_ms = float(np.median(window_ms))
     print(eng.summary_line(state))
-    say("tpcc", f"ticks={TPCC_TICKS} commits_per_tick="
-        f"{commits / TPCC_TICKS} abort_rate={s['abort_rate']:.6f} "
-        f"user_abort_cnt={s['user_abort_cnt']} tick_ms median={tick_ms:.4f}"
-        f" min={min(window_ms):.4f} max={max(window_ms):.4f} over "
-        f"{len(window_ms)} windows of {WINDOW_TICKS} ticks (cuda events) "
-        f"committed_txn_per_s={commits / TPCC_TICKS / tick_ms * 1e3:.1f} "
-        f"peak_mem_mb={peak / 2**20:.1f}")
+    say(name, f"ticks={ticks} commits_per_tick={commits / ticks} "
+        f"abort_rate={s['abort_rate']:.6f} user_abort_cnt="
+        f"{s['user_abort_cnt']} twopl_wait_cnt={s['twopl_wait_cnt']} "
+        f"tick_ms median={tick_ms:.4f} min={min(window_ms):.4f} "
+        f"max={max(window_ms):.4f} over {len(window_ms)} windows of "
+        f"{WINDOW_TICKS} ticks (cuda events) committed_txn_per_s="
+        f"{commits / ticks / tick_ms * 1e3:.1f} peak_mem_mb="
+        f"{peak / 2**20:.1f}")
     c, f = branch["compact"], branch["full"]
-    say("tpcc", f"effect bodies: compact={c} full={f} ticks; kernel launches="
-        f"{fused.LAUNCHES} ({fused.LAUNCHES / TPCC_TICKS:g} per tick), "
-        f"fallbacks={snap['count']}")
+    say(name, f"effect bodies: compact={c} full={f} ticks; kernel launches="
+        f"{launches} ({launches / ticks:g} per tick), fallbacks="
+        f"{snap['count']}")
     for pack, cnt in sorted(by_pack.items()):
-        say("tpcc", f"  {names.get(pack, pack)} {pack}: {cnt} "
-            f"launches, {cnt / TPCC_TICKS:g} per tick")
+        say(name, f"  {names.get(pack, pack)} {pack}: {cnt} "
+            f"launches, {cnt / ticks:g} per tick")
     want = {}
-    for ticks, per_tick in ((c, per_compact), (f, per_full)):
-        for pack, k in per_tick.items() if ticks else ():
-            want[pack] = want.get(pack, 0) + k * ticks
-    if c + f != TPCC_TICKS or by_pack != want:
-        raise AssertionError(f"tpcc launches by pack {by_pack} != {want} "
+    for n_ticks, per_tick in ((c, per_compact), (f, per_full)):
+        for pack, k in per_tick.items() if n_ticks else ():
+            want[pack] = want.get(pack, 0) + k * n_ticks
+    if c + f != ticks or by_pack != want:
+        raise AssertionError(f"{name} launches by pack {by_pack} != {want} "
                              f"for {c} compact and {f} full ticks")
     if snap["count"] != 0:
         raise AssertionError(f"fused sort fell back: {snap}")
     if int(state.data.sum().item()) != s["write_cnt"]:
-        raise AssertionError("data.sum() != write_cnt on the tpcc run")
-    payments, neworders, laws = check_tpcc_conservation(
-        tpcc, cfg, init, state.tables, s)
-    if not (payments > 0 and neworders > 0 and math.isfinite(tick_ms)):
-        raise AssertionError("the tpcc run committed no Payment or NewOrder")
-    say("tpcc", f"conservation holds ({', '.join(laws)}): {payments} "
-        f"Payments, {neworders} NewOrders; data.sum() == write_cnt")
+        raise AssertionError(f"data.sum() != write_cnt on the {name} run")
+    if not (commits > 0 and math.isfinite(tick_ms)):
+        raise AssertionError(f"the {name} run committed nothing")
+    return eng, state, init, dict(s=s, by_pack=by_pack, names=names,
+                                  tick_ms=tick_ms)
 
-    # a traced window: the kernel's device launches per tick equal the
-    # wrapper's count over the same ticks; then the host syncs of a tick:
-    # the two host reads of the effect step and no other
+
+def trace_cell(name, eng, state, fused, want_syncs, sync_file):
+    """A traced window of the cell's ticks: the kernel's device launches
+    per tick equal the wrapper's count over the same ticks; then the host
+    syncs of a tick (CUDA sync debug mode) must be `want_syncs`, all at
+    lines of `sync_file`.  Returns the packs of one more tick, captured,
+    and the trace's per-tick numbers; flushes the state."""
     from deneva_tpu_torch.profile_tick import (breakdown, host_syncs,
                                                trace_kernels)
     box, per_call = [state], []
@@ -491,25 +539,135 @@ def phase_tpcc(cells, Engine, timed_run, fused, dev):
                                   lambda: sum(per_call[-TRACE_TICKS:])),
                     TRACE_TICKS)
     counted = sum(per_call[-TRACE_TICKS:]) / TRACE_TICKS
-    say("trace", f"{TRACE_TICKS} tpcc ticks (torch.profiler): "
+    say("trace", f"{TRACE_TICKS} {name} ticks (torch.profiler): "
         f"{per['kernel_launches']:.1f} device launches per tick, device "
         f"busy {per['device_busy_us']:.1f} us per tick, fused kernel "
         f"{per['fused_sort_scan_launches']:g} launches and "
         f"{per['fused_sort_scan_us']:.1f} us per tick (wrapper count "
-        f"{counted:g})")
+        f"{counted:g}), cummax kernels {per['cummax_launches']:g} per tick")
     if per["fused_sort_scan_launches"] != counted:
         raise AssertionError("traced kernel launches per tick != the "
                              "wrapper's count")
     syncs, sites = host_syncs(tick, TRACE_TICKS)
-    say("trace", f"{TRACE_TICKS} tpcc ticks (CUDA sync debug mode): "
+    say("trace", f"{TRACE_TICKS} {name} ticks (CUDA sync debug mode): "
         f"{syncs:g} host syncs per tick at {sites}")
-    if round(syncs, 6) != 2 or not all(k.startswith("tpcc.py:")
-                                       for k in sites):
-        raise AssertionError(f"expected the 2 host reads of the effect "
-                             f"step per tick, saw {syncs} at {sites}")
+    if round(syncs, 6) != want_syncs or not all(
+            k.startswith(sync_file + ":") for k in sites):
+        raise AssertionError(f"expected the {want_syncs} host reads of the "
+                             f"effect step per tick, saw {syncs} at {sites}")
     packs = capture_packs(fused, tick)
     eng._flush_body(box[0])
-    return eng.pool, by_pack, packs, names
+    return packs, per
+
+
+def phase_tpcc(cells, Engine, timed_run, fused, dev):
+    """The tpcc cell at full scale on the card: build times, 300 ticks in
+    windows, launches per tick by pack against the branch counts, the
+    conservation laws, a traced window, and the captured packs."""
+    from deneva_tpu_torch.workloads import tpcc
+    eng, state, init, rec = run_effect_cell(
+        cells, "tpcc", Engine, timed_run, fused, dev, tpcc_packs,
+        TPCC_TICKS, tpcc.checksums)
+    payments, neworders, laws = check_tpcc_conservation(
+        tpcc, eng.cfg, init, state.tables, rec["s"])
+    if not (payments > 0 and neworders > 0):
+        raise AssertionError("the tpcc run committed no Payment or NewOrder")
+    say("tpcc", f"conservation holds ({', '.join(laws)}): {payments} "
+        f"Payments, {neworders} NewOrders; data.sum() == write_cnt")
+    # the two host reads of the effect step and no other
+    packs, _ = trace_cell("tpcc", eng, state, fused, 2, "tpcc.py")
+    return eng.pool, rec["by_pack"], packs, rec["names"]
+
+
+def part_amount_sum(tables) -> int:
+    return int(tables["part_amount"].to(torch.int64).sum().item())
+
+
+def check_pps_conservation(pps, cfg, pool, amount0, state):
+    """PART_AMOUNT conservation (tests/test_pps.py): every committed
+    ORDERPRODUCT part write lowers sum(part_amount) by 1 and every
+    committed UPDATEPART raises it by 100.  Both write PARTS rows, whose
+    committed writes the increment oracle `data` counts, so the change of
+    the sum fixes both counts; a pool without UPDATEPART must show none.
+    Returns the ORDERPRODUCT part writes and the UPDATEPART commits."""
+    t = pps.catalog(cfg).tables["PARTS"]
+    parts_writes = int(state.data[t.base:t.base + t.n_local].sum().item())
+    delta = part_amount_sum(state.tables) - amount0
+    n_upd, rem = divmod(delta + parts_writes, 101)
+    has_upd = bool((pool.txn_type == pps.PPS_UPDATEPART).any())
+    if rem or not 0 <= n_upd <= parts_writes or (n_upd and not has_upd):
+        raise AssertionError(
+            f"PART_AMOUNT conservation broken: sum changed by {delta} over "
+            f"{parts_writes} committed PARTS writes")
+    return parts_writes - n_upd, n_upd
+
+
+def phase_pps(cells, Engine, timed_run, fused, dev):
+    """The pps cell on the card: build times, 300 ticks in windows,
+    launches per tick by pack against the branch counts, PART_AMOUNT
+    conservation, a traced window, and the captured packs."""
+    from deneva_tpu_torch.workloads import pps
+    eng, state, amount0, rec = run_effect_cell(
+        cells, "pps", Engine, timed_run, fused, dev, pps_packs, PPS_TICKS,
+        part_amount_sum)
+    orders, upd = check_pps_conservation(pps, eng.cfg, eng.pool, amount0,
+                                         state)
+    if not orders > 0:
+        raise AssertionError("the pps run committed no ORDERPRODUCT")
+    say("pps", f"PART_AMOUNT conserved: {orders} ORDERPRODUCT part writes "
+        f"(-1 each), {upd} UPDATEPART commits (+100 each); "
+        "data.sum() == write_cnt")
+    # the one host read of the effect step (the effect count)
+    packs, _ = trace_cell("pps", eng, state, fused, 1, "pps.py")
+    return eng.pool, rec["by_pack"], packs, rec["names"]
+
+
+def phase_wait_die(cells, Engine, timed_run, fused, dev):
+    """The pps_wait_die cell on the card: waits happen, launches by pack
+    match the effect bodies, the tick time, WAIT_DIE's library scans per
+    tick in a traced window, and 1 host sync per tick."""
+    eng, state, _, rec = run_effect_cell(
+        cells, "pps_wait_die", Engine, timed_run, fused, dev, pps_packs,
+        PPS_TICKS, part_amount_sum)
+    if not rec["s"]["twopl_wait_cnt"] > 0:
+        raise AssertionError("no WAIT decision in the pps_wait_die run")
+    _, per = trace_cell("pps_wait_die", eng, state, fused, 1, "pps.py")
+    say("pps_wait_die", f"WAIT_DIE's segment scans (seg_min_where's two "
+        f"torch.cummax): {per['cummax_launches']:g} cummax launches per "
+        "tick")
+    return eng.pool
+
+
+def phase_cpu_equal(cells, name, Engine, dev, ticks, pool=None, **over):
+    """The cell `name` (with `over`) on the port's CPU path and on CUDA for
+    `ticks` ticks on one pool: summary dicts, data and every table equal."""
+    cfg = cells.config(name, **over)
+    gpu = Engine(cfg, pool=pool, device=dev)
+    cpu = Engine(cfg, pool=gpu.pool, device="cpu")
+    sg = gpu.run(ticks)
+    t0 = time.perf_counter()
+    sc = cpu.run(ticks)
+    cpu_s = time.perf_counter() - t0
+    label = " ".join([name] + [f"{k}={v}" for k, v in over.items()])
+    a, b = gpu.summary(sg), cpu.summary(sc)
+    diff = {k: (a[k], b.get(k)) for k in a
+            if k != "ccl_samples" and a[k] != b.get(k)}
+    if diff or a != b:
+        raise AssertionError(f"{label}: CUDA and CPU summaries differ: "
+                             f"{diff}")
+    if not torch.equal(sg.data.cpu(), sc.data):
+        raise AssertionError(f"{label}: CUDA and CPU data tables differ")
+    bad = [k for k in sc.tables
+           if not torch.equal(sg.tables[k].cpu(), sc.tables[k])]
+    if bad or sorted(sg.tables) != sorted(sc.tables):
+        raise AssertionError(f"{label}: CUDA and CPU tables differ: {bad}")
+    if int(sc.data.sum().item()) != b["write_cnt"]:
+        raise AssertionError(f"{label}: data.sum() != write_cnt on the CPU")
+    say("cpu", f"{label} {ticks} ticks: CUDA and CPU summary dicts, data "
+        f"and all {len(sc.tables)} tables equal (txn_cnt={b['txn_cnt']}, "
+        f"total_txn_abort_cnt={b['total_txn_abort_cnt']}, twopl_wait_cnt="
+        f"{b['twopl_wait_cnt']}); CPU run {cpu_s:.1f} s")
+    return b
 
 
 def phase_tpcc_cpu_match(cells, Engine, dev, pool):
@@ -541,6 +699,17 @@ def phase_tpcc_cpu_match(cells, Engine, dev, pool):
         f"{b['txn_cnt']}, user_abort_cnt={b['user_abort_cnt']}, "
         f"order_cursor={int(tpcc.ring_view(sc.tables, 'order_cursor'))}); "
         f"CPU run {cpu_s:.1f} s; conservation holds ({', '.join(laws)})")
+
+
+def measure_captured(fused, rows, packs, cell_names, names, cell):
+    """Hold every pack captured from a tick of `cell` against the plain
+    version and time it (``measure_pack``), into `rows`."""
+    for pack, cols in sorted(packs.items()):
+        if pack not in cell_names:
+            raise AssertionError(f"the {cell} tick sorted an unnamed pack "
+                                 f"{pack}")
+        rows[pack] = measure_pack(fused, names[pack], cols, pack[1],
+                                  pack[3])
 
 
 def phase_cpu_match(cells, Engine, dev):
@@ -588,15 +757,29 @@ def main() -> int:
     pool, tpcc_by_pack, packs, tpcc_names = phase_tpcc(
         cells, Engine, timed_run, fused, dev)
     names = {**PACK_NAMES, **tpcc_names}
-    for pack, cols in sorted(packs.items()):
-        if pack not in tpcc_names:
-            raise AssertionError(f"the tpcc tick sorted an unnamed pack "
-                                 f"{pack}")
-        rows[pack] = measure_pack(fused, names[pack], cols, pack[1],
-                                  pack[3])
+    measure_captured(fused, rows, packs, tpcc_names, names, "tpcc")
     phase_tpcc_cpu_match(cells, Engine, dev, pool)
-
     by_pack.update(tpcc_by_pack)
+
+    pps_pool, pps_by_pack, packs, pps_names = phase_pps(
+        cells, Engine, timed_run, fused, dev)
+    names.update(pps_names)
+    measure_captured(fused, rows, packs, pps_names, names, "pps")
+    phase_cpu_equal(cells, "pps", Engine, dev, PPS_CPU_TICKS, pool=pps_pool)
+    by_pack.update(pps_by_pack)
+
+    wd_pool = phase_wait_die(cells, Engine, timed_run, fused, dev)
+    for name, ticks in WD_CPU_TICKS.items():
+        if name == "pps_wait_die":
+            s = phase_cpu_equal(cells, name, Engine, dev, ticks, pool=wd_pool)
+        else:
+            s = phase_cpu_equal(cells, name, Engine, dev, ticks,
+                                pool=pool if name == "tpcc" else None,
+                                cc_alg="WAIT_DIE")
+        if not s["twopl_wait_cnt"] > 0:
+            raise AssertionError(f"no WAIT decision in the {name} WAIT_DIE "
+                                 "run")
+
     kernels = []
     for pack, r in sorted(rows.items(), key=lambda kv: names[kv[0]]):
         n_in, nk, n, shift = pack

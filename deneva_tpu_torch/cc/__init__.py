@@ -1,8 +1,8 @@
 """CC-algorithm registry (the reference's CC_ALG compile switch).  The
-port carries NO_WAIT so far."""
+port carries NO_WAIT and WAIT_DIE so far."""
 
 from deneva_tpu_torch.cc.base import AccessDecision, CCPlugin
-from deneva_tpu_torch.cc.no_wait import NoWait
+from deneva_tpu_torch.cc.no_wait import NoWait, WaitDie
 
 REGISTRY: dict[str, CCPlugin] = {}
 
@@ -13,6 +13,7 @@ def register(plugin: CCPlugin) -> CCPlugin:
 
 
 register(NoWait())
+register(WaitDie())
 
 
 def get(name: str) -> CCPlugin:

@@ -15,6 +15,17 @@
   is 16.74M catalog rows (CUSTOMER 3.84M, STOCK 12.8M) and B*R = 270,336
   lock entries per tick.  Nothing is cut; the insert rings keep the JAX
   package's default capacities.
+- ``pps``: PPS under NO_WAIT with the fused kernel, at ``bench.py``'s B=8192,
+  pool 65,536 and admission cap of 1024, and the ``Config`` PPS defaults
+  (the JAX package's copy of the reference's PPS block, config.h:235-242):
+  1,024 parts, products and suppliers, up to 10 parts per product or
+  supplier, and the mix 0.2 GETPARTBYPRODUCT, 0.6 ORDERPRODUCT, 0.2
+  UPDATEPRODUCTPART.  Its source is Deneva's ``pps_scaling`` grid
+  (``BASELINE.md``) at one node, whose in-flight load (MAX_TXN_IN_FLIGHT
+  10,000 per node) B=8192 stands for.  PPS tables are small by nature
+  (23,575 catalog rows); R = 21, so a tick arbitrates 172,032 lock lanes.
+  Nothing is cut.
+- ``pps_wait_die``: the ``pps`` cell under WAIT_DIE.
 """
 
 from __future__ import annotations
@@ -35,7 +46,11 @@ CELLS = {
                  cust_per_dist=3000, max_items=100000, max_items_per_txn=15,
                  perc_payment=0.5, wh_update=True, query_pool_size=1 << 16,
                  warmup_ticks=0, admit_cap=1024),
+    "pps": dict(workload="PPS", cc_alg="NO_WAIT", fused_arbitrate=True,
+                batch_size=8192, query_pool_size=1 << 16, warmup_ticks=0,
+                admit_cap=1024),
 }
+CELLS["pps_wait_die"] = dict(CELLS["pps"], cc_alg="WAIT_DIE")
 
 
 def config(name: str, **overrides) -> Config:

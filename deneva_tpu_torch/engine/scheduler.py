@@ -11,18 +11,19 @@ once.  One tick:
   5. sends aborted txns to exponential backoff (worker_thread.cpp:160-171).
 
 This is the port of ``deneva_tpu/engine/scheduler.py`` for one slice:
-YCSB or TPC-C under NO_WAIT, single shard, SERIALIZABLE, NORMAL mode,
-commit before access, with ``fused_arbitrate`` on or off and every other
-opt-in flag off.  ``check_slice`` refuses anything else; its single-shard
-rule also covers the JAX engine's ``part_cnt == 1`` assertion for a
-workload with commit effects.  Every observatory hook of the reference
-tick is a no-op at those flags and is left out.
+YCSB, TPC-C or PPS under NO_WAIT or WAIT_DIE, single shard, SERIALIZABLE,
+NORMAL mode, commit before access, with ``fused_arbitrate`` on or off and
+every other opt-in flag off.  ``check_slice`` refuses anything else; its
+single-shard rule also covers the JAX engine's ``part_cnt == 1``
+assertion for a workload with commit effects.  Every observatory hook of
+the reference tick is a no-op at those flags and is left out.
 
 PyTorch runs eagerly, so the tick is a plain function that updates the
 state's counters, rings and workload tables in place (each in-place site
 says so).  The engine itself never reads a device value on the host; a
 YCSB tick syncs the device nowhere.  TPC-C's commit effects read two
-scalars per tick on the host (``workloads/tpcc.py``).
+scalars per tick on the host (``workloads/tpcc.py``), PPS's one
+(``workloads/pps.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ import torch
 from deneva_tpu_torch import cc as cc_registry
 from deneva_tpu_torch import workloads as wl_registry
 from deneva_tpu_torch.config import (
-    MODE_NORMAL, NO_WAIT, SERIALIZABLE, TPCC, YCSB, Config, optin_flags,
+    MODE_NORMAL, NO_WAIT, PPS, SERIALIZABLE, TPCC, WAIT_DIE, YCSB, Config,
+    optin_flags,
 )
 from deneva_tpu_torch.engine.state import (
     NULL_KEY, STATUS_BACKOFF, STATUS_FREE, STATUS_RUNNING, STATUS_WAITING,
@@ -105,9 +107,9 @@ def resolve_device(device) -> torch.device:
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for a config outside the ported slice."""
     bad = []
-    if cfg.cc_alg != NO_WAIT:
+    if cfg.cc_alg not in (NO_WAIT, WAIT_DIE):
         bad.append(f"cc_alg={cfg.cc_alg}")
-    if cfg.workload not in (YCSB, TPCC):
+    if cfg.workload not in (YCSB, TPCC, PPS):
         bad.append(f"workload={cfg.workload}")
     if cfg.isolation_level != SERIALIZABLE:
         bad.append(f"isolation_level={cfg.isolation_level}")
@@ -126,8 +128,8 @@ def check_slice(cfg: Config) -> None:
             bad.append(name)
     if bad:
         raise NotImplementedError(
-            "outside the ported slice (YCSB or TPC-C under NO_WAIT, single "
-            "shard, default flags): " + ", ".join(bad))
+            "outside the ported slice (YCSB, TPC-C or PPS under NO_WAIT or "
+            "WAIT_DIE, single shard, default flags): " + ", ".join(bad))
 
 
 def _zeros_stats(B: int, R: int, device) -> dict:

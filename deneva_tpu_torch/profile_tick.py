@@ -2,6 +2,8 @@
 
     python -m deneva_tpu_torch.profile_tick --cell headline --ticks 50
     python -m deneva_tpu_torch.profile_tick --cell tpcc --ticks 50
+    python -m deneva_tpu_torch.profile_tick --cell pps --ticks 50
+    python -m deneva_tpu_torch.profile_tick --cell pps_wait_die --ticks 50
 
 Runs the cell's warm-up, then times ``--ticks`` ticks with CUDA events
 (no profiler attached), counting the fused kernel's launches by pack,

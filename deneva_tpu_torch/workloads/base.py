@@ -12,6 +12,9 @@ import dataclasses
 import numpy as np
 import torch
 
+I32 = torch.int32
+I64 = torch.int64
+
 
 @dataclasses.dataclass
 class QueryPool:
@@ -45,6 +48,44 @@ class QueryPool:
     @property
     def max_req(self) -> int:
         return self.keys.shape[1]
+
+
+def iota(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=I32, device=device)
+
+
+def effect_lanes(cfg, n: int, per_txn: int, floor: int) -> int:
+    """K, the lanes of a compacted commit-effect body for n entries: a
+    committing txn carries at most ``per_txn`` effect entries, commits per
+    tick do not exceed admissions in steady state, and K is at least
+    ``floor`` (the reference's per-workload minimum), at most n."""
+    acap = cfg.admit_cap if cfg.admit_cap is not None else cfg.batch_size
+    return min(n, max(floor, acap * per_txn))
+
+
+def add_rows(dst: torch.Tensor, row, mask, vals) -> None:
+    """``dst[row] += vals`` where ``mask``, in place: int32 ``index_add_``,
+    exact in any order.  Lanes outside the mask add 0 at a row spread by
+    lane, in bounds and off any single hot row."""
+    lanes = iota(row.shape[0], row.device)
+    idx = torch.where(mask, row, lanes % dst.shape[0])
+    m = mask if vals.dim() == 1 else mask[:, None]
+    dst.index_add_(0, idx.to(I64), torch.where(m, vals, 0))
+
+
+def store_rows(dst: torch.Tensor, row, mask, vals) -> None:
+    """``dst[row] = vals`` where ``mask``, in place, for rows that are
+    distinct across the masked lanes: the exact int32 add of
+    ``vals - dst[row]``, so no lane needs a scratch row."""
+    m = mask if vals.dim() == 1 else mask[:, None]
+    old = dst[torch.where(mask, row, 0).to(I64)]
+    add_rows(dst, row, mask, torch.where(m, vals - old, 0))
+
+
+def unpermute_rows(order: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``out[order[i]] = vals[i]`` for a sort permutation ``order``: sorted
+    values back to lane order (``index_copy_`` onto distinct indices)."""
+    return torch.empty_like(vals).index_copy_(0, order.to(I64), vals)
 
 
 class WorkloadPlugin:

@@ -40,12 +40,13 @@ So a tick with effects syncs the host twice when B*R > K, once otherwise
 (``profile_tick`` counts a tick's syncs); ``TPCCWorkload.branch_ticks``
 counts the bodies taken.
 
-Scatters keep the port's discipline.  Additive effects are int32
-``index_add_``, exact in any order; lanes without an effect add 0 at a row
-spread by lane (adding at one shared row would serialize the atomics).  A
-store (the s_quantity result, a ring row) is the same ``index_add_`` of
-``new - old`` at its distinct position, so it needs no scratch rows and no
-duplicate-index store.  The rank unpermutes are ``index_copy_`` onto a
+Scatters keep the port's discipline (the helpers of ``workloads/base.py``,
+shared with PPS).  Additive effects are int32 ``index_add_``, exact in any
+order; lanes without an effect add 0 at a row spread by lane (adding at
+one shared row would serialize the atomics).  A store (the s_quantity
+result, a ring row) is the same ``index_add_`` of ``new - old`` at its
+distinct position, so it needs no scratch rows and no duplicate-index
+store.  The rank unpermutes are ``index_copy_`` onto a
 permutation, whose indices are distinct.  No element of a device tensor
 is stored from the host (``x[-1] = True`` syncs the device).
 
@@ -62,7 +63,10 @@ import torch
 from deneva_tpu_torch.config import Config
 from deneva_tpu_torch.ops import segment as seg
 from deneva_tpu_torch.storage.catalog import Catalog
-from deneva_tpu_torch.workloads.base import QueryPool, WorkloadPlugin
+from deneva_tpu_torch.workloads import base
+from deneva_tpu_torch.workloads.base import (
+    QueryPool, WorkloadPlugin, add_rows, iota, store_rows, unpermute_rows,
+)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -138,10 +142,8 @@ def ring_view(tables: dict, col: str):
 
 def effect_lanes(cfg: Config, n: int) -> int:
     """K, the lanes of the compacted effect body for n = B*R entries: a
-    txn has at most max_items_per_txn + 2 effect roles, and commits per
-    tick do not exceed admissions in steady state."""
-    acap = cfg.admit_cap if cfg.admit_cap is not None else cfg.batch_size
-    return min(n, max(8192, acap * (cfg.max_items_per_txn + 2)))
+    txn has at most max_items_per_txn + 2 effect roles."""
+    return base.effect_lanes(cfg, n, cfg.max_items_per_txn + 2, 8192)
 
 
 def checksums(tables: dict) -> dict:
@@ -224,35 +226,6 @@ def _lastname_median_map(cfg: Config, rng, nurand: NURand) -> np.ndarray:
             mid = starts + (ends - starts) // 2     # the cnt/2 chain walk
             out[w, d] = order[mid] + 1              # back to 1-based c_id
     return out
-
-
-def _iota(n: int, device) -> torch.Tensor:
-    return torch.arange(n, dtype=I32, device=device)
-
-
-def _add_rows(dst: torch.Tensor, row, mask, vals) -> None:
-    """``dst[row] += vals`` where ``mask``, in place: int32 ``index_add_``,
-    exact in any order.  Lanes outside the mask add 0 at a row spread by
-    lane, in bounds and off any single hot row."""
-    lanes = _iota(row.shape[0], row.device)
-    idx = torch.where(mask, row, lanes % dst.shape[0])
-    m = mask if vals.dim() == 1 else mask[:, None]
-    dst.index_add_(0, idx.to(I64), torch.where(m, vals, 0))
-
-
-def _store_rows(dst: torch.Tensor, row, mask, vals) -> None:
-    """``dst[row] = vals`` where ``mask``, in place, for rows that are
-    distinct across the masked lanes: the exact int32 add of
-    ``vals - dst[row]``, so no lane needs a scratch row."""
-    m = mask if vals.dim() == 1 else mask[:, None]
-    old = dst[torch.where(mask, row, 0).to(I64)]
-    _add_rows(dst, row, mask, torch.where(m, vals - old, 0))
-
-
-def _unpermute(order: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """``out[order[i]] = vals[i]`` for a sort permutation ``order``: sorted
-    values back to lane order (``index_copy_`` onto distinct indices)."""
-    return torch.empty_like(vals).index_copy_(0, order.to(I64), vals)
 
 
 class TPCCWorkload(WorkloadPlugin):
@@ -508,10 +481,10 @@ class TPCCWorkload(WorkloadPlugin):
         is_no = commit & (txn.txn_type == TPCC_NEW_ORDER)
         dloc = cat.local("DISTRICT", txn.keys[:, 2])  # slot 2 = district
         dkey = torch.where(is_no, dloc, OOB)
-        slot = _iota(B, dev)
+        slot = iota(B, dev)
         # the sort is stable: same-district slots keep their order
         (_, sslot), _, sidx = seg.sort_pack_scan((dkey, slot), num_keys=1)
-        rank = _unpermute(sslot, slot - sidx)
+        rank = unpermute_rows(sslot, slot - sidx)
         d_next = tables["d_next_o_id"][torch.where(is_no, dloc, 0).to(I64)]
         o_id = torch.where(is_no, d_next + rank, 0)
 
@@ -551,7 +524,7 @@ class TPCCWorkload(WorkloadPlugin):
             return self._apply_entries_body(cfg, tables, key_local, part,
                                             role_f, fields["earg"],
                                             fields["earg2"], cts, eff)
-        idx = _iota(n, key_local.device)
+        idx = iota(n, key_local.device)
         out = seg.sort_pack(
             (torch.where(eff, cts, OOB), idx, key_local, role_f,
              fields["earg"], fields["earg2"], cts, eff.to(I32)), num_keys=2)
@@ -565,7 +538,7 @@ class TPCCWorkload(WorkloadPlugin):
         cat = catalog(cfg)
         P = cfg.part_cnt
         n = key_local.shape[0]
-        lanes = _iota(n, key_local.device)
+        lanes = iota(n, key_local.device)
         role = torch.where(eff, role_f & 7, ROLE_NONE)
         dw = role_f >> 3
         pay_d = (dw & 15) + 1
@@ -576,26 +549,26 @@ class TPCCWorkload(WorkloadPlugin):
 
         # -- Payment: YTD / balance effects (additive, order-free) --
         m = role == ROLE_W_PAY
-        _add_rows(t["w_ytd"], off("WAREHOUSE", m), m, earg)
+        add_rows(t["w_ytd"], off("WAREHOUSE", m), m, earg)
         m = role == ROLE_D_PAY
-        _add_rows(t["d_ytd"], off("DISTRICT", m), m, earg)
+        add_rows(t["d_ytd"], off("DISTRICT", m), m, earg)
         mc = role == ROLE_C_PAY
         co = off("CUSTOMER", mc)
-        _add_rows(t["cust_block"], co, mc,
-                  torch.stack([-earg, earg, torch.ones_like(earg)], dim=1))
+        add_rows(t["cust_block"], co, mc,
+                 torch.stack([-earg, earg, torch.ones_like(earg)], dim=1))
 
         # -- NewOrder: district next_o_id advance (additive) --
         md = role == ROLE_D_NO
-        _add_rows(t["d_next_o_id"], off("DISTRICT", md), md,
-                  torch.ones_like(earg))
+        add_rows(t["d_next_o_id"], off("DISTRICT", md), md,
+                 torch.ones_like(earg))
 
         # -- Stock: additive counters + sequential s_quantity rule --
         ms = role == ROLE_S_NO
         so = off("STOCK", ms)
         qty = (earg & 15) + 1
         remote = (earg >> 4) & 1
-        _add_rows(t["stock_block"], so, ms,
-                  torch.stack([qty, torch.ones_like(qty), remote], dim=1))
+        add_rows(t["stock_block"], so, ms,
+                 torch.stack([qty, torch.ones_like(qty), remote], dim=1))
         # s_quantity (new_order_9, tpcc_txn.cpp:900-906): the conditional
         # restock is not associative, so same-row entries apply in cts
         # order.  Sorted by (stock row, cts) they are adjacent; rank r of
@@ -618,7 +591,7 @@ class TPCCWorkload(WorkloadPlugin):
         # the last entry of each stock row holds its result (an element
         # store from the host, ends[-1] = True, would sync the device)
         ends = torch.roll(sstarts, -1) | (lanes == n - 1)
-        _store_rows(t["s_quantity"], soff, slive & ends, qa)
+        store_rows(t["s_quantity"], soff, slive & ends, qa)
 
         # -- ring appends, ordered by (cts, entry index); one (n, C) row
         # store per ring block --
@@ -626,14 +599,14 @@ class TPCCWorkload(WorkloadPlugin):
             cnt = mask.sum(dtype=I32)
             pri = torch.where(mask, cts, OOB)
             _, pidx = seg.sort_pack((pri, lanes), num_keys=1)   # stable
-            r = _unpermute(pidx, lanes)
+            r = unpermute_rows(pidx, lanes)
             # masked lanes sort first, so their ranks are 0..cnt-1; under
             # wrap the ring keeps the LAST cap records
             keep = mask & (r >= cnt - cap)
             pos = (t[cursor_key] + r) % cap
             payload = torch.stack([torch.where(mask, v, 0) for v in cols],
                                   dim=1)
-            _store_rows(t[block_key], pos, keep, payload)
+            store_rows(t[block_key], pos, keep, payload)
             t[cursor_key].add_(cnt)
 
         # HISTORY at the customer's shard (run_payment_5: insert at

@@ -199,3 +199,110 @@ def test_engine_cuda_matches_cpu(dev):
     sc = cpu.run(100)
     assert gpu.summary(sg) == cpu.summary(sc)
     assert torch.equal(sg.data.cpu(), sc.data)
+
+
+#: the packs a pps-cell tick adds (workloads/pps.py): the effect
+#: compaction at B*R = 172,032 lanes (6 columns, 1 key) and the USES
+#: last-writer-wins sort at K = 21,504 (3 columns, 2 keys)
+PPS_PACKS = [(172_032, 1, 6), (21_504, 2, 3)]
+
+
+@pytest.mark.parametrize("n,num_keys,n_cols", PPS_PACKS)
+def test_pps_pack_matches_plain_in_one_launch(dev, n, num_keys, n_cols):
+    cols = _cols(dev, n, num_keys, n_cols, hi=1 << 20)
+    _check(cols, num_keys)
+    _assert_one_device_launch(lambda: fused.fused_sort_scan(cols, num_keys))
+
+
+@pytest.mark.parametrize("live_frac,branch,launches",
+                         [(0.3, "compact", 2), (0.9, "full", 1)])
+def test_pps_effects_cuda_match_cpu(dev, live_frac, branch, launches):
+    # random effect entries of every role, with repeated PARTS and USES
+    # rows, at n = 9,000 > K = 4096 lanes: few enough live entries take
+    # the compacted body (compaction and the USES sort at K), more the
+    # full-width body (the USES sort at n, no compaction)
+    from deneva_tpu_torch.ops import segment as seg
+    from deneva_tpu_torch.workloads import pps
+    cfg = Config(workload="PPS", batch_size=512, admit_cap=16,
+                 max_part_key=128, max_product_key=128,
+                 max_supplier_key=128, max_parts_per=5,
+                 fused_arbitrate=True)
+    cat = pps.catalog(cfg)
+    rng = np.random.default_rng(7)
+    n = 9000
+    roles = rng.integers(0, 4, n)        # ROLE_NONE .. ROLE_SETUSES
+    key = np.zeros(n, np.int64)
+    for role, tab in ((0, "PRODUCTS"), (1, "PARTS"), (2, "PARTS"),
+                      (3, "USES")):
+        m = roles == role
+        t = cat.tables[tab]
+        key[m] = t.base + rng.integers(0, t.n_local, int(m.sum()))
+    earg = np.where(roles == 3, rng.integers(1, 129, n), 0)
+    cols = dict(role=roles | (earg << 3), earg=earg, key=key,
+                cts=rng.permutation(n) + 1)
+    live = (roles > 0) & (rng.random(n) < live_frac)
+    out = {}
+    for d in ("cpu", dev):
+        t = {k: torch.from_numpy(v.astype(np.int32)).to(d)
+             for k, v in cols.items()}
+        wl = pps.PPSWorkload()
+        fused.reset_launches()
+        with seg.fused_scope(cfg):
+            out[str(d)] = wl.apply_commit_entries(
+                cfg, wl.init_tables(cfg, 0, device=d), t["key"], 0,
+                {f: t[f] for f in wl.effect_fields}, t["cts"],
+                torch.from_numpy(live).to(d))
+        assert wl.branch_ticks[branch] == 1
+    assert fused.LAUNCHES == launches
+    gpu, cpu = out[str(dev)], out["cpu"]
+    for k in cpu:
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+
+
+def test_pps_engine_cuda_matches_cpu(dev):
+    # B*R = 5,632 > K = 4096: every tick compacts its effects, so a tick
+    # makes 4 kernel launches
+    cfg = Config(workload="PPS", batch_size=512, admit_cap=64,
+                 max_part_key=128, max_product_key=128,
+                 max_supplier_key=128, max_parts_per=5,
+                 query_pool_size=2048, fused_arbitrate=True)
+    gpu = Engine(cfg, device=dev)
+    cpu = Engine(cfg, pool=gpu.pool, device="cpu")
+    fused.reset_launches()
+    sg = gpu.run(40)
+    assert fused.LAUNCHES == 4 * 40
+    sc = cpu.run(40)
+    assert gpu.summary(sg) == cpu.summary(sc)
+    assert gpu.summary(sg)["txn_cnt"] > 0
+    assert torch.equal(sg.data.cpu(), sc.data)
+    for k in sc.tables:
+        assert torch.equal(sg.tables[k].cpu(), sc.tables[k]), k
+    assert gpu.workload.branch_ticks == cpu.workload.branch_ticks \
+        == {"compact": 40, "full": 0}
+
+
+#: small WAIT_DIE configs of the three workloads, each with waits
+WAIT_DIE_CFGS = {
+    "ycsb": dict(batch_size=64, synth_table_size=256, req_per_query=4,
+                 query_pool_size=512, zipf_theta=0.9),
+    "tpcc": dict(workload="TPCC", batch_size=64, num_wh=16,
+                 cust_per_dist=1000, max_items=128, query_pool_size=1024),
+    "pps": dict(workload="PPS", batch_size=64, max_part_key=128,
+                max_product_key=128, max_supplier_key=128, max_parts_per=5,
+                query_pool_size=512),
+}
+
+
+@pytest.mark.parametrize("workload", sorted(WAIT_DIE_CFGS))
+def test_wait_die_engine_cuda_matches_cpu(dev, workload):
+    cfg = Config(cc_alg="WAIT_DIE", fused_arbitrate=True,
+                 **WAIT_DIE_CFGS[workload])
+    gpu = Engine(cfg, device=dev)
+    cpu = Engine(cfg, pool=gpu.pool, device="cpu")
+    sg, sc = gpu.run(60), cpu.run(60)
+    s = gpu.summary(sg)
+    assert s == cpu.summary(sc)
+    assert s["txn_cnt"] > 0 and s["twopl_wait_cnt"] > 0
+    assert torch.equal(sg.data.cpu(), sc.data)
+    for k in sc.tables:
+        assert torch.equal(sg.tables[k].cpu(), sc.tables[k]), k

@@ -22,7 +22,8 @@ MODULES = (
     "deneva_tpu_torch.stats", "deneva_tpu_torch.__main__",
     "deneva_tpu_torch.workloads", "deneva_tpu_torch.workloads.base",
     "deneva_tpu_torch.workloads.ycsb", "deneva_tpu_torch.workloads.tpcc",
-    "deneva_tpu_torch.storage", "deneva_tpu_torch.storage.catalog",
+    "deneva_tpu_torch.workloads.pps", "deneva_tpu_torch.storage",
+    "deneva_tpu_torch.storage.catalog", "deneva_tpu_torch.storage.ordered",
     "deneva_tpu_torch.engine.state",
     "deneva_tpu_torch.engine.scheduler", "deneva_tpu_torch.ops.segment",
     "deneva_tpu_torch.ops.fused", "deneva_tpu_torch.ops.cuda_build",
@@ -76,10 +77,10 @@ def test_cpu_engine_runs():
 
 
 OUTSIDE = {
-    "wait_die": dict(cc_alg="WAIT_DIE"),
+    "timestamp": dict(cc_alg="TIMESTAMP"),
     "occ": dict(cc_alg="OCC"),
-    "pps": dict(workload="PPS"),
-    # TPC-C is ported on one shard only
+    # TPC-C and PPS are ported on one shard only
+    "pps": dict(workload="PPS", part_cnt=2),
     "tpcc": dict(workload="TPCC", part_cnt=2),
     "read_committed": dict(isolation_level="READ_COMMITTED"),
     "nocc_mode": dict(mode="NOCC"),
