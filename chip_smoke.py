@@ -640,7 +640,9 @@ def phase_wait_die(cells, Engine, timed_run, fused, dev):
 
 def phase_cpu_equal(cells, name, Engine, dev, ticks, pool=None, **over):
     """The cell `name` (with `over`) on the port's CPU path and on CUDA for
-    `ticks` ticks on one pool: summary dicts, data and every table equal."""
+    `ticks` ticks on one pool: summary dicts, data, every table and the
+    effect bodies taken (``branch_ticks``, where the workload has them)
+    equal.  Returns the CPU run's summary, engine and state."""
     cfg = cells.config(name, **over)
     gpu = Engine(cfg, pool=pool, device=dev)
     cpu = Engine(cfg, pool=gpu.pool, device="cpu")
@@ -661,44 +663,30 @@ def phase_cpu_equal(cells, name, Engine, dev, ticks, pool=None, **over):
            if not torch.equal(sg.tables[k].cpu(), sc.tables[k])]
     if bad or sorted(sg.tables) != sorted(sc.tables):
         raise AssertionError(f"{label}: CUDA and CPU tables differ: {bad}")
+    if (getattr(gpu.workload, "branch_ticks", None)
+            != getattr(cpu.workload, "branch_ticks", None)):
+        raise AssertionError(f"{label}: CUDA and CPU took other effect "
+                             "bodies")
     if int(sc.data.sum().item()) != b["write_cnt"]:
         raise AssertionError(f"{label}: data.sum() != write_cnt on the CPU")
     say("cpu", f"{label} {ticks} ticks: CUDA and CPU summary dicts, data "
         f"and all {len(sc.tables)} tables equal (txn_cnt={b['txn_cnt']}, "
         f"total_txn_abort_cnt={b['total_txn_abort_cnt']}, twopl_wait_cnt="
         f"{b['twopl_wait_cnt']}); CPU run {cpu_s:.1f} s")
-    return b
+    return b, cpu, sc
 
 
-def phase_tpcc_cpu_match(cells, Engine, dev, pool):
+def phase_tpcc_cpu_equal(cells, Engine, dev, pool):
+    """``phase_cpu_equal`` on the tpcc cell, then TPC-C's conservation laws
+    on the CPU run's tables."""
     from deneva_tpu_torch.workloads import tpcc
-    cfg = cells.config("tpcc")
-    gpu = Engine(cfg, pool=pool, device=dev)
-    cpu = Engine(cfg, pool=pool, device="cpu")
+    s, cpu, sc = phase_cpu_equal(cells, "tpcc", Engine, dev, TPCC_CPU_TICKS,
+                                 pool=pool)
     init = tpcc.checksums(cpu.init_state().tables)
-    sg = gpu.run(TPCC_CPU_TICKS)
-    t0 = time.perf_counter()
-    sc = cpu.run(TPCC_CPU_TICKS)
-    cpu_s = time.perf_counter() - t0
-    a, b = gpu.summary(sg), cpu.summary(sc)
-    diff = {k: (a[k], b.get(k)) for k in a
-            if k != "ccl_samples" and a[k] != b.get(k)}
-    if diff or a != b:
-        raise AssertionError(f"tpcc CUDA and CPU summaries differ: {diff}")
-    if not torch.equal(sg.data.cpu(), sc.data):
-        raise AssertionError("tpcc CUDA and CPU data tables differ")
-    bad = [k for k in sc.tables
-           if not torch.equal(sg.tables[k].cpu(), sc.tables[k])]
-    if bad or sorted(sg.tables) != sorted(sc.tables):
-        raise AssertionError(f"tpcc CUDA and CPU tables differ: {bad}")
-    if gpu.workload.branch_ticks != cpu.workload.branch_ticks:
-        raise AssertionError("tpcc CUDA and CPU took other effect bodies")
-    _, _, laws = check_tpcc_conservation(tpcc, cfg, init, sc.tables, b)
-    say("cpu", f"tpcc {TPCC_CPU_TICKS} ticks: CUDA and CPU summary dicts, "
-        f"data and all {len(sc.tables)} tables equal (txn_cnt="
-        f"{b['txn_cnt']}, user_abort_cnt={b['user_abort_cnt']}, "
-        f"order_cursor={int(tpcc.ring_view(sc.tables, 'order_cursor'))}); "
-        f"CPU run {cpu_s:.1f} s; conservation holds ({', '.join(laws)})")
+    _, _, laws = check_tpcc_conservation(tpcc, cpu.cfg, init, sc.tables, s)
+    say("cpu", f"tpcc: user_abort_cnt={s['user_abort_cnt']}, order_cursor="
+        f"{int(tpcc.ring_view(sc.tables, 'order_cursor'))}; conservation "
+        f"holds ({', '.join(laws)})")
 
 
 def measure_captured(fused, rows, packs, cell_names, names, cell):
@@ -710,28 +698,6 @@ def measure_captured(fused, rows, packs, cell_names, names, cell):
                                  f"{pack}")
         rows[pack] = measure_pack(fused, names[pack], cols, pack[1],
                                   pack[3])
-
-
-def phase_cpu_match(cells, Engine, dev):
-    cfg = cells.config("headline")
-    gpu = Engine(cfg, device=dev)
-    cpu = Engine(cfg, pool=gpu.pool, device="cpu")
-    sg = gpu.run(CPU_TICKS)
-    t0 = time.perf_counter()
-    sc = cpu.run(CPU_TICKS)
-    cpu_s = time.perf_counter() - t0
-    a, b = gpu.summary(sg), cpu.summary(sc)
-    diff = {k: (a[k], b.get(k)) for k in a
-            if k != "ccl_samples" and a[k] != b.get(k)}
-    if diff or a != b:
-        raise AssertionError(f"CUDA and CPU summaries differ: {diff}")
-    if not torch.equal(sg.data.cpu(), sc.data):
-        raise AssertionError("CUDA and CPU data tables differ")
-    if int(sc.data.sum().item()) != b["write_cnt"]:
-        raise AssertionError("data.sum() != write_cnt on the CPU run")
-    say("cpu", f"{CPU_TICKS} ticks: CUDA and CPU summary dicts and data "
-        f"equal (txn_cnt={b['txn_cnt']}, write_cnt={b['write_cnt']}); "
-        f"CPU run {cpu_s:.1f} s")
 
 
 def main() -> int:
@@ -753,12 +719,12 @@ def main() -> int:
     phase_build(fused)
     rows = phase_kernel(fused, dev)
     by_pack = phase_headline(cells, Engine, timed_run, fused, dev)
-    phase_cpu_match(cells, Engine, dev)
+    phase_cpu_equal(cells, "headline", Engine, dev, CPU_TICKS)
     pool, tpcc_by_pack, packs, tpcc_names = phase_tpcc(
         cells, Engine, timed_run, fused, dev)
     names = {**PACK_NAMES, **tpcc_names}
     measure_captured(fused, rows, packs, tpcc_names, names, "tpcc")
-    phase_tpcc_cpu_match(cells, Engine, dev, pool)
+    phase_tpcc_cpu_equal(cells, Engine, dev, pool)
     by_pack.update(tpcc_by_pack)
 
     pps_pool, pps_by_pack, packs, pps_names = phase_pps(
@@ -771,11 +737,12 @@ def main() -> int:
     wd_pool = phase_wait_die(cells, Engine, timed_run, fused, dev)
     for name, ticks in WD_CPU_TICKS.items():
         if name == "pps_wait_die":
-            s = phase_cpu_equal(cells, name, Engine, dev, ticks, pool=wd_pool)
+            s, _, _ = phase_cpu_equal(cells, name, Engine, dev, ticks,
+                                      pool=wd_pool)
         else:
-            s = phase_cpu_equal(cells, name, Engine, dev, ticks,
-                                pool=pool if name == "tpcc" else None,
-                                cc_alg="WAIT_DIE")
+            s, _, _ = phase_cpu_equal(cells, name, Engine, dev, ticks,
+                                      pool=pool if name == "tpcc" else None,
+                                      cc_alg="WAIT_DIE")
         if not s["twopl_wait_cnt"] > 0:
             raise AssertionError(f"no WAIT decision in the {name} WAIT_DIE "
                                  "run")

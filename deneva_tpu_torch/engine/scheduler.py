@@ -40,6 +40,7 @@ from deneva_tpu_torch.config import (
     MODE_NORMAL, NO_WAIT, PPS, SERIALIZABLE, TPCC, WAIT_DIE, YCSB, Config,
     optin_flags,
 )
+from deneva_tpu_torch.device import resolve_device
 from deneva_tpu_torch.engine.state import (
     NULL_KEY, STATUS_BACKOFF, STATUS_FREE, STATUS_RUNNING, STATUS_WAITING,
     TxnState,
@@ -88,20 +89,6 @@ STAT_KEYS_F32 = (
 
 #: commit-latency sampling ring depth (StatsArr, stats_array.cpp)
 LAT_SAMPLES = 1 << 14
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; asking for CUDA on a host
-    without it raises (never a quiet fall back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "device='cuda' was asked for but torch.cuda.is_available() "
-                "is false; pass device='cpu' to run on the host")
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 def check_slice(cfg: Config) -> None:

@@ -18,14 +18,17 @@ API (batched over query lanes):
   idx.range_count(lo, hi)             # |{k: lo <= k < hi}|
 
 Row ids are the positions the caller's row store used at load time.  The
-index lives on ``device`` (the CPU unless asked otherwise); queries are
-moved there.
+index lives on ``device`` (the card unless ``device="cpu"`` is asked
+for; asking for the card on a host without one raises); queries are moved
+there.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from deneva_tpu_torch.device import resolve_device
 
 I32 = torch.int32
 
@@ -35,11 +38,12 @@ NULL_ROW = 2**31 - 1
 class OrderedIndex:
     """Immutable sorted-key index over one shard's rows."""
 
-    def __init__(self, keys, device="cpu"):
+    def __init__(self, keys, device="cuda"):
         k = np.asarray(keys)
         assert k.ndim == 1 and k.size > 0
         assert (np.diff(k) > 0).all(), "keys must be sorted unique"
-        self.keys = torch.from_numpy(k.astype(np.int32)).to(device)
+        self.keys = torch.from_numpy(k.astype(np.int32)).to(
+            resolve_device(device))
         self.n = int(k.shape[0])
 
     def _q(self, q) -> torch.Tensor:

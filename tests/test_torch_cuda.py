@@ -17,6 +17,7 @@ from deneva_tpu_torch.config import Config  # noqa: E402
 from deneva_tpu_torch.engine.scheduler import Engine  # noqa: E402
 from deneva_tpu_torch.ops import fused  # noqa: E402
 from deneva_tpu_torch.profile_tick import breakdown, trace_kernels  # noqa: E402
+from deneva_tpu_torch.storage.ordered import OrderedIndex  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -306,3 +307,17 @@ def test_wait_die_engine_cuda_matches_cpu(dev, workload):
     assert torch.equal(sg.data.cpu(), sc.data)
     for k in sc.tables:
         assert torch.equal(sg.tables[k].cpu(), sc.tables[k]), k
+
+
+def test_ordered_index_cuda_matches_cpu(dev):
+    rng = np.random.default_rng(3)
+    keys = np.unique(rng.integers(0, 10_000, 500))
+    q = rng.integers(0, 10_000, 256).astype(np.int32)
+    los = np.array([0, 5000, 9999, 12000], np.int32)
+    his = np.array([100, 6000, 10_000, 13_000], np.int32)
+    gpu, cpu = OrderedIndex(keys), OrderedIndex(keys, device="cpu")
+    assert gpu.keys.device.type == "cuda"
+    for fn in (lambda i: i.lookup(q), lambda i: i.range_start(los),
+               lambda i: i.range_window(los, 8, hi=his),
+               lambda i: i.range_count(los, his)):
+        assert torch.equal(fn(gpu).cpu(), fn(cpu))

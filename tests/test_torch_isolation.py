@@ -14,11 +14,13 @@ torch = pytest.importorskip("torch")
 from deneva_tpu_torch.config import Config  # noqa: E402
 from deneva_tpu_torch.engine.scheduler import Engine  # noqa: E402
 from deneva_tpu_torch.ops import cuda_build  # noqa: E402
+from deneva_tpu_torch.storage.ordered import OrderedIndex  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 
 MODULES = (
     "deneva_tpu_torch", "deneva_tpu_torch.config", "deneva_tpu_torch.cells",
+    "deneva_tpu_torch.device",
     "deneva_tpu_torch.stats", "deneva_tpu_torch.__main__",
     "deneva_tpu_torch.workloads", "deneva_tpu_torch.workloads.base",
     "deneva_tpu_torch.workloads.ycsb", "deneva_tpu_torch.workloads.tpcc",
@@ -67,6 +69,13 @@ def test_cuda_engine_raises_without_a_card():
     with pytest.raises(RuntimeError, match="cuda"):
         Engine(Config(batch_size=8, synth_table_size=64, req_per_query=2,
                       query_pool_size=16))
+
+
+def test_ordered_index_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="cuda"):
+        OrderedIndex([1, 2, 3])
 
 
 def test_cpu_engine_runs():

@@ -1,5 +1,5 @@
-"""The port's ordered index (deneva_tpu_torch.storage.ordered, on the
-CPU): twins of the three tests of tests/test_ordered_index.py, each also
+"""The port's ordered index (deneva_tpu_torch.storage.ordered, asked for
+the CPU): twins of the three tests of tests/test_ordered_index.py, each also
 held to the JAX package's OrderedIndex on the same keys and queries.
 Comparisons are exact (integer positions)."""
 
@@ -28,7 +28,7 @@ def _eq(got, want):
 
 def test_lookup_and_range_match_numpy():
     keys = sparse_keys()
-    idx, jidx = OrderedIndex(keys), JIndex(keys)
+    idx, jidx = OrderedIndex(keys, device="cpu"), JIndex(keys)
     rng = np.random.default_rng(5)
     q = rng.integers(0, 10_000, 256).astype(np.int32)
 
@@ -54,7 +54,7 @@ def test_lookup_and_range_match_numpy():
 
 def test_batched_range_windows():
     keys = sparse_keys()
-    idx = OrderedIndex(keys)
+    idx = OrderedIndex(keys, device="cpu")
     los = np.array([0, 5000, 9999, 12000], np.int32)
     win = idx.range_window(los, 8)
     assert tuple(win.shape) == (4, 8)
@@ -74,7 +74,7 @@ def test_range_scan_workload_runs_through_engine():
     population, as a btree-backed scan would drive row accesses."""
     table = 1 << 12
     pop = np.unique(np.random.default_rng(9).integers(0, table, 600))
-    idx = OrderedIndex(pop)
+    idx = OrderedIndex(pop, device="cpu")
     Q, W = 256, 6
     rng = np.random.default_rng(11)
     los = rng.integers(0, table, Q).astype(np.int32)
