@@ -23,7 +23,7 @@ Phases, each printing one line:
      per tick by pack against the ticks that took the compacted or the
      full-width effect body, 0 fallbacks, TPC-C's conservation laws, a
      traced window whose device launches of the kernel match the count,
-     and 2 host syncs per tick (the effect step's two reads);
+     and 1 host sync per tick (the effect step's compact/full choice);
   7. every pack one tpcc tick sorts, captured from the tick, held
      bit-equal to the plain version and timed as in phase 3;
   8. the tpcc cell on the port's CPU path: summary, data and every table
@@ -40,10 +40,24 @@ Phases, each printing one line:
  11. the pps cell on the port's CPU path: summary, data and both tables
      equal to a CUDA run of the same length;
  12. WAIT_DIE: the pps_wait_die cell on CUDA (waits happen, launches by
-     pack, tick time, WAIT_DIE's library scans per tick, 1 host sync per
+     pack, tick time, no torch.cummax left in the tick, 1 host sync per
      tick), then CPU == CUDA on pps_wait_die and on the headline and tpcc
-     cells under WAIT_DIE (fewer ticks, see WD_CPU_TICKS).
-Then one JSON line of per-kernel numbers (one entry per pack) and the final
+     cells under WAIT_DIE (fewer ticks, see WD_CPU_TICKS);
+ 13. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
+     pps and pps_wait_die cells: 300 ticks eager and 300 replayed from the
+     same initial state give equal summaries, data, tables and effect
+     bodies; a replayed tick makes 0 host syncs (sync debug mode "error");
+     the launches by pack captured per tick are the eager tick's plus the
+     full-width effect body's (both bodies run, on complementary masks),
+     and a traced window of replays shows them; TPC-C's restock-bound
+     counter is 0; the eager and the graph tick ms (6 windows of 50 ticks,
+     CUDA events) beside the card's name and power limit, and the peak
+     memory of both; the packs only a captured tick sorts (the full-width
+     effect body) held bit-equal to the plain version and timed.
+Then one JSON line of per-kernel numbers (one entry per pack; ``launches``
+counts the wrapper's launches on the eager paths, and for a pack only the
+graph path sorts, its warm-up and capture; ``replayed_launches`` those the
+graph replays ran) and the final
 ``{"ok": true, "device": {...}}`` line.  Any failure raises and exits
 nonzero; without a CUDA device it exits nonzero before printing a result.
 """
@@ -79,6 +93,9 @@ PPS_TICKS = 300
 PPS_CPU_TICKS = 40
 #: ticks of the CPU == CUDA checks under WAIT_DIE, by cell
 WD_CPU_TICKS = {"pps_wait_die": 40, "headline": 20, "tpcc": 20}
+#: cells of the graph phase, and its ticks on each path
+GRAPH_CELLS = ("headline", "tpcc", "pps", "pps_wait_die")
+GRAPH_TICKS = 300
 #: the packs a headline tick sorts, as (columns, keys, lanes, shift)
 PACK_NAMES = {
     (3, 2, MAIN_N, 1): "headline lock sort",
@@ -89,8 +106,9 @@ PACK_NAMES = {
 def tpcc_packs(eng):
     """The packs a tick of the TPC-C engine `eng` sorts, by (columns,
     keys, lanes, shift), and the kernel launches a tick makes of each
-    when it takes the compacted (K-lane) or the full-width effect body.
-    B*R lanes are those of the engine's pool; K is the workload's."""
+    when it takes the compacted (K-lane) or the full-width effect body,
+    and those of every tick.  B*R lanes are those of the engine's pool; K
+    is the workload's."""
     from deneva_tpu_torch.workloads import tpcc
     B = eng.cfg.batch_size
     N = B * eng.pool.max_req
@@ -109,13 +127,14 @@ def tpcc_packs(eng):
     compact.update({(8, 2, N, 0): 1, (3, 2, K, 0): 1, (2, 1, K, 0): 3})
     full = dict(every)
     full.update({(3, 2, N, 0): 1, (2, 1, N, 0): 4})
-    return names, compact, full
+    return names, compact, full, every
 
 
 def pps_packs(eng):
     """The packs a tick of the PPS engine `eng` sorts, by (columns, keys,
     lanes, shift), and the kernel launches a tick makes of each when it
-    takes the compacted (K-lane) or the full-width effect body."""
+    takes the compacted (K-lane) or the full-width effect body, and those
+    of every tick."""
     from deneva_tpu_torch.workloads import pps
     N = eng.cfg.batch_size * eng.pool.max_req
     K = pps.effect_lanes(eng.cfg, N)
@@ -131,7 +150,7 @@ def pps_packs(eng):
     compact.update({(6, 1, N, 0): 1, (3, 2, K, 0): 1})
     full = dict(every)
     full.update({(3, 2, N, 0): 1})
-    return names, compact, full
+    return names, compact, full, every
 
 
 def say(phase: str, msg: str) -> None:
@@ -467,7 +486,7 @@ def run_effect_cell(cells, name, Engine, timed_run, fused, dev, packs_fn,
         f"rows) generated and uploaded in {pool_s:.2f} s; tables "
         f"({mb:.1f} MB on the card) built in {tables_s:.2f} s")
     init = snapshot(state.tables)
-    names, per_compact, per_full = packs_fn(eng)
+    names, per_compact, per_full, _ = packs_fn(eng)
     wl = eng.workload
     state = eng.run(WARMUP_TICKS, state)
     before = eng.summary(state)["txn_cnt"]
@@ -574,8 +593,8 @@ def phase_tpcc(cells, Engine, timed_run, fused, dev):
         raise AssertionError("the tpcc run committed no Payment or NewOrder")
     say("tpcc", f"conservation holds ({', '.join(laws)}): {payments} "
         f"Payments, {neworders} NewOrders; data.sum() == write_cnt")
-    # the two host reads of the effect step and no other
-    packs, _ = trace_cell("tpcc", eng, state, fused, 2, "tpcc.py")
+    # the one host read of the effect step (its compact/full choice)
+    packs, _ = trace_cell("tpcc", eng, state, fused, 1, "base.py")
     return eng.pool, rec["by_pack"], packs, rec["names"]
 
 
@@ -617,24 +636,26 @@ def phase_pps(cells, Engine, timed_run, fused, dev):
     say("pps", f"PART_AMOUNT conserved: {orders} ORDERPRODUCT part writes "
         f"(-1 each), {upd} UPDATEPART commits (+100 each); "
         "data.sum() == write_cnt")
-    # the one host read of the effect step (the effect count)
-    packs, _ = trace_cell("pps", eng, state, fused, 1, "pps.py")
+    # the one host read of the effect step (its compact/full choice)
+    packs, _ = trace_cell("pps", eng, state, fused, 1, "base.py")
     return eng.pool, rec["by_pack"], packs, rec["names"]
 
 
 def phase_wait_die(cells, Engine, timed_run, fused, dev):
     """The pps_wait_die cell on the card: waits happen, launches by pack
-    match the effect bodies, the tick time, WAIT_DIE's library scans per
-    tick in a traced window, and 1 host sync per tick."""
+    match the effect bodies, the tick time, no torch.cummax in a traced
+    window (the minimum held ts is a gather), and 1 host sync per tick."""
     eng, state, _, rec = run_effect_cell(
         cells, "pps_wait_die", Engine, timed_run, fused, dev, pps_packs,
         PPS_TICKS, part_amount_sum)
     if not rec["s"]["twopl_wait_cnt"] > 0:
         raise AssertionError("no WAIT decision in the pps_wait_die run")
-    _, per = trace_cell("pps_wait_die", eng, state, fused, 1, "pps.py")
-    say("pps_wait_die", f"WAIT_DIE's segment scans (seg_min_where's two "
-        f"torch.cummax): {per['cummax_launches']:g} cummax launches per "
-        "tick")
+    _, per = trace_cell("pps_wait_die", eng, state, fused, 1, "base.py")
+    say("pps_wait_die", f"torch.cummax launches per tick: "
+        f"{per['cummax_launches']:g} (WAIT_DIE's minimum held ts is a "
+        "gather)")
+    if per["cummax_launches"]:
+        raise AssertionError("the pps_wait_die tick still runs torch.cummax")
     return eng.pool
 
 
@@ -689,6 +710,170 @@ def phase_tpcc_cpu_equal(cells, Engine, dev, pool):
         f"holds ({', '.join(laws)})")
 
 
+def graph_packs(eng):
+    """The names of the packs the cell's tick sorts, by (columns, keys,
+    lanes, shift), and the launches of each per tick on the eager path
+    (the compacted effect body: no full-scale tick has taken the other)
+    and per replay of a captured graph (both effect bodies, on
+    complementary masks: every-tick packs + both bodies' own)."""
+    if eng.cfg.workload == "YCSB":
+        N = eng.cfg.batch_size * eng.pool.max_req
+        every = {(3, 2, N, 1): 1, (2, 1, N, 0): 1}
+        return PACK_NAMES, every, every
+    packs_fn = tpcc_packs if eng.cfg.workload == "TPCC" else pps_packs
+    names, compact, full, every = packs_fn(eng)
+    both = {p: compact.get(p, 0) + full.get(p, 0) - every.get(p, 0)
+            for p in set(compact) | set(full)}
+    return names, compact, both
+
+
+def host_copy(eng, state):
+    """Summary, data and tables of a flushed state, on the host."""
+    return (eng.summary(state), state.data.cpu(),
+            {k: v.cpu() for k, v in state.tables.items()})
+
+
+def windows(timed_run, eng, state, compiled):
+    """GRAPH_TICKS ticks in windows of WINDOW_TICKS, each timed with CUDA
+    events; returns the state and the ms per tick of each window."""
+    ms = []
+    for _ in range(GRAPH_TICKS // WINDOW_TICKS):
+        state, per_tick = timed_run(eng, WINDOW_TICKS, state,
+                                    compiled=compiled)
+        ms.append(per_tick * 1e3)
+    return state, ms
+
+
+def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
+    """``Engine.run_compiled`` on the cell `name`: GRAPH_TICKS ticks eager
+    and GRAPH_TICKS replayed, each from the cell's initial state and in
+    timed windows; equal results, 0 host syncs per replayed tick, the
+    captured launches by pack, a traced window of replays, the restock
+    counter, tick times and peak memory.  The kernel's launch counts are
+    set to 0 just before the graph path (warm-up, capture and replays)
+    and read just after.  Returns the inputs of every pack a captured tick
+    sorts (``packs``), their ``names``, the graph path's wrapper counts
+    (``counted``) and the launches of its replays (``replayed``)."""
+    from deneva_tpu_torch.profile_tick import (breakdown, host_syncs,
+                                               trace_kernels)
+    from deneva_tpu_torch.workloads.base import device_branches
+    eng = Engine(cells.config(name), device=dev)
+    wl = eng.workload
+    names, per_eager, per_graph = graph_packs(eng)
+
+    c0 = wl.counts()
+    fused.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mb = torch.cuda.memory_allocated(dev) / 2**20
+    state, eager_ms = windows(timed_run, eng, eng.init_state(), False)
+    eager_peak = torch.cuda.max_memory_allocated(dev) / 2**20 - base_mb
+    eager_by_pack = dict(fused.LAUNCHES_BY_PACK)
+    c1 = wl.counts()
+    eager = host_copy(eng, state)
+    del state
+    torch.cuda.empty_cache()
+
+    fused.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    # warm-up and capture
+    state = eng.advance(0, eng.init_state(), compiled=True)
+    torch.cuda.synchronize(dev)
+    capture_s = time.perf_counter() - t0
+    state, graph_ms = windows(timed_run, eng, state, True)
+    graph_peak = torch.cuda.max_memory_allocated(dev) / 2**20 - base_mb
+    counted = dict(fused.LAUNCHES_BY_PACK)
+    c2 = wl.counts()
+    graph = host_copy(eng, state)
+
+    # the same results
+    diff = {k: (eager[0][k], graph[0].get(k)) for k in eager[0]
+            if k != "ccl_samples" and eager[0][k] != graph[0].get(k)}
+    if diff or eager[0] != graph[0]:
+        raise AssertionError(f"{name}: eager and graph summaries differ: "
+                             f"{diff}")
+    if not torch.equal(eager[1], graph[1]):
+        raise AssertionError(f"{name}: eager and graph data differ")
+    bad = [k for k in eager[2] if not torch.equal(eager[2][k], graph[2][k])]
+    if bad:
+        raise AssertionError(f"{name}: eager and graph tables differ: {bad}")
+    bodies_e = {k: c1[k] - c0[k] for k in c0}
+    bodies_g = {k: c2[k] - c1[k] for k in c0}
+    if bodies_e != bodies_g or bodies_e.get("restock_overflow", 0):
+        raise AssertionError(f"{name}: effect bodies or restock overflow "
+                             f"differ: eager {bodies_e}, graph {bodies_g}")
+    if int(graph[1].sum()) != graph[0]["write_cnt"] \
+            or not graph[0]["txn_cnt"] > 0:
+        raise AssertionError(f"{name}: the graph run broke the oracle or "
+                             "committed nothing")
+
+    # launches: eager by the bodies taken; a replay by its graph's capture
+    if bodies_e.get("full", 0) and eng.cfg.workload != "YCSB":
+        raise AssertionError(f"{name}: a full-width eager tick at full "
+                             "scale; the launch tables assume none")
+    want_eager = {p: n * GRAPH_TICKS for p, n in per_eager.items()}
+    replayed = eng.graphs.launches_of(0, GRAPH_TICKS)
+    want_graph = {p: n * GRAPH_TICKS for p, n in per_graph.items()}
+    if eager_by_pack != want_eager or replayed != want_graph:
+        raise AssertionError(f"{name}: launches by pack: eager "
+                             f"{eager_by_pack} (want {want_eager}), "
+                             f"replayed {replayed} (want {want_graph})")
+    missing = [p for p in per_graph if not counted.get(p)]
+    if missing:
+        raise AssertionError(f"{name}: the graph path launched no "
+                             f"{missing}")
+    extra = {names.get(p, p): n - per_eager.get(p, 0)
+             for p, n in sorted(per_graph.items())
+             if n != per_eager.get(p, 0)}
+
+    # 0 host syncs per replayed tick; a traced window of replays
+    box = [state]
+
+    def replay():
+        box[0] = eng.advance(1, box[0], compiled=True)
+
+    syncs, sites = host_syncs(replay, TRACE_TICKS, "error")
+    start = box[0].host_tick
+    per = breakdown(trace_kernels(
+        replay, TRACE_TICKS,
+        lambda: sum(eng.graphs.launches_of(box[0].host_tick - TRACE_TICKS,
+                                           TRACE_TICKS).values())),
+        TRACE_TICKS)
+    want_sort = sum(eng.graphs.launches_of(start, 1).values())
+    if syncs or per["fused_sort_scan_launches"] != want_sort:
+        raise AssertionError(f"{name}: replayed tick: {syncs} host syncs at "
+                             f"{sites}; {per['fused_sort_scan_launches']} "
+                             f"fused launches traced, {want_sort} captured")
+    # the inputs of every pack a captured tick sorts (both bodies)
+    with device_branches():
+        packs = capture_packs(fused, lambda: eng.tick(box[0]))
+    eng._flush_body(box[0])
+
+    e_med, g_med = float(np.median(eager_ms)), float(np.median(graph_ms))
+    say("graph", f"{name}: {GRAPH_TICKS} ticks eager == {GRAPH_TICKS} "
+        f"replayed (summary, data, {len(eager[2])} tables, effect bodies "
+        f"{bodies_g}); txn_cnt={graph[0]['txn_cnt']}; capture "
+        f"{capture_s:.2f} s (warm-up and {len(eng.graphs.graphs)} phase "
+        "graphs)")
+    say("graph", f"{name}: tick_ms eager median={e_med:.4f} "
+        f"min={min(eager_ms):.4f} max={max(eager_ms):.4f}, graph median="
+        f"{g_med:.4f} min={min(graph_ms):.4f} max={max(graph_ms):.4f} "
+        f"({len(graph_ms)} windows of {WINDOW_TICKS} ticks, cuda events; "
+        f"eager/graph {e_med / g_med:.2f}x) on {gpu_line}")
+    say("graph", f"{name}: replayed tick: 0 host syncs (sync debug mode "
+        f"error), {per['kernel_launches']:.1f} device launches, device busy "
+        f"{per['device_busy_us']:.1f} us, fused kernel "
+        f"{per['fused_sort_scan_launches']:g} launches and "
+        f"{per['fused_sort_scan_us']:.1f} us (torch.profiler, "
+        f"{TRACE_TICKS} replays); idle {1 - per['device_busy_us'] / 1e3 / g_med:.3f}"
+        f"; launches per tick beyond the eager tick's: {extra or 'none'}")
+    say("graph", f"{name}: peak device memory above the engine's own "
+        f"{eager_peak:.1f} MB eager, {graph_peak:.1f} MB graph (static "
+        "buffers and the phase graphs' pool)")
+    return dict(packs=packs, names=names, counted=counted,
+                replayed=replayed)
+
+
 def measure_captured(fused, rows, packs, cell_names, names, cell):
     """Hold every pack captured from a tick of `cell` against the plain
     version and time it (``measure_pack``), into `rows`."""
@@ -713,8 +898,11 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # CUDA-graph conditional nodes (IF bodies) through torch, which the
+    # effect branch would use in place of both bodies on masks
+    cond = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
+          f"python {sys.version.split()[0]} graph_conditional_nodes={cond}")
     phase_gpu()
     phase_build(fused)
     rows = phase_kernel(fused, dev)
@@ -747,6 +935,21 @@ def main() -> int:
             raise AssertionError(f"no WAIT decision in the {name} WAIT_DIE "
                                  "run")
 
+    gpu_line = phase_gpu()
+    replayed = {}
+    for name in GRAPH_CELLS:
+        rec = phase_graph(cells, name, Engine, timed_run, fused, dev,
+                          gpu_line)
+        # the packs only the graph path sorts (the full-width effect body):
+        # held to the plain version and timed; their launches are the graph
+        # path's wrapper count (warm-up and capture)
+        new = {p: c for p, c in rec["packs"].items() if p not in rows}
+        names.update(rec["names"])
+        measure_captured(fused, rows, new, rec["names"], names, name)
+        by_pack.update({p: rec["counted"][p] for p in new})
+        for p, n in rec["replayed"].items():
+            replayed[p] = replayed.get(p, 0) + n
+
     kernels = []
     for pack, r in sorted(rows.items(), key=lambda kv: names[kv[0]]):
         n_in, nk, n, shift = pack
@@ -757,6 +960,7 @@ def main() -> int:
             "source": "deneva_tpu_torch/csrc/fused_sort_scan.cu",
             "replaces": "deneva_tpu/ops/fused.py:122",
             "launches": by_pack.get(pack, 0),
+            "replayed_launches": replayed.get(pack, 0),
             "device_launches_per_call": r["device_launches"],
             "device_ms": r["device_ms"],
             "max_abs_err": r["err"], "ms": r["ms"],

@@ -1,10 +1,13 @@
 """Run a named cell of the port and print its ``[summary]`` line.
 
     python -m deneva_tpu_torch --cell headline --device cuda --ticks 300
+    python -m deneva_tpu_torch --cell tpcc --device cuda --compiled
 
 Runs 20 warm-up ticks, then ``--ticks`` timed ticks, and prints the
 ``[summary]`` line, commits per tick, and the tick time: from CUDA events
-on a GPU, from the host clock on the CPU.
+on a GPU, from the host clock on the CPU.  ``--compiled`` runs both as
+``Engine.run_compiled`` does: on a GPU as replays of CUDA graphs of the
+tick, on the CPU with no host read in the tick.
 """
 
 from __future__ import annotations
@@ -23,16 +26,21 @@ def main(argv=None) -> None:
     ap.add_argument("--cell", choices=sorted(cells.CELLS), default="entry")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ticks", type=int, default=300)
+    ap.add_argument("--compiled", action="store_true",
+                    help="run the ticks as Engine.run_compiled does")
     args = ap.parse_args(argv)
 
     eng = Engine(cells.config(args.cell), device=args.device)
-    state = eng.run(WARMUP_TICKS)
+    run = eng.run_compiled if args.compiled else eng.run
+    state = run(WARMUP_TICKS)
     before = eng.summary(state)["txn_cnt"]
-    state, per_tick = timed_run(eng, args.ticks, state)
+    state, per_tick = timed_run(eng, args.ticks, state,
+                                compiled=args.compiled)
     commits = eng.summary(state)["txn_cnt"] - before
     clock = "cuda events" if eng.device.type == "cuda" else "host clock"
     print(eng.summary_line(state))
     print(f"cell={args.cell} device={eng.device} ticks={args.ticks} "
+          f"compiled={args.compiled} "
           f"commits_per_tick={commits / max(args.ticks, 1)} "
           f"tick_ms={per_tick * 1e3} ({clock})")
 

@@ -93,6 +93,11 @@ class CCPlugin:
     new_ts_on_restart: bool = False
     #: registered reasons this plugin's access decisions can carry
     access_abort_reasons: tuple[str, ...] = ()
+    #: the most txns that can commit a write to one row in one tick: the
+    #: static pass count of a workload's effect chain (TPC-C's restock).
+    #: None leaves the chain's depth to a host read, which a captured tick
+    #: cannot make.
+    row_writers_per_tick: int | None = None
 
     def init_db(self, cfg: Config, n_rows: int, B: int, R: int,
                 device="cpu") -> dict:

@@ -21,6 +21,9 @@ from deneva_tpu_torch.engine.state import TxnState, make_entries
 class TwoPLPlugin(CCPlugin):
     policy = "NO_WAIT"
     access_abort_reasons = ("nowait_conflict",)
+    #: strict 2PL: every committer holds its X locks at once, so a row has
+    #: at most one committing writer per tick
+    row_writers_per_tick = 1
 
     def access(self, cfg: Config, db: dict, txn: TxnState, active):
         B, R = txn.keys.shape

@@ -70,7 +70,10 @@ def arbitrate(ent: Entries, policy: str):
         s_abort = s_fail
     elif policy == "WAIT_DIE":
         granted_before = seg.seg_any_before(s_grant, starts, sidx)
-        min_held_ts = seg.seg_min_where(sts, s_held, starts, BIG_TS)
+        # a row's held entries sort first (kind 0), by ts: the minimum held
+        # ts is the segment start's ts if that entry is held
+        min_held_ts = torch.where(s_held.index_select(0, sidx),
+                                  sts.index_select(0, sidx), BIG_TS)
         canwait = ~granted_before & (sts < min_held_ts)
         s_wait = s_fail & canwait
         s_abort = s_fail & ~canwait

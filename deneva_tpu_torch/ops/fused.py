@@ -16,7 +16,11 @@ the kernel.
 Dispatch is by device, never by failure: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel (which raises if it cannot build or
 launch).  ``LAUNCHES`` counts kernel launches, so a run can show that its
-main path went through the kernel.
+main path went through the kernel.  The count moves where the wrapper
+runs: a launch captured into a CUDA graph counts once, at the capture,
+and not at each replay (``engine/graph.py`` keeps the launches of each
+captured graph).  The launch, ``cudaLaunchCooperativeKernel`` on the
+current stream, is captured as a cooperative kernel node.
 """
 
 from __future__ import annotations
@@ -146,6 +150,15 @@ def build() -> dict:
     from deneva_tpu_torch.ops.cuda_build import load_library
     _lib()
     return load_library("fused_sort_scan")[1]
+
+
+def warm() -> None:
+    """Build and load the kernel and make its occupancy query for every key
+    count on the current device: the start-up a CUDA-graph capture must
+    find done (the query is cached per device, csrc/fused_sort_scan.cu
+    ``grid_size``)."""
+    for num_keys in range(1, MAX_KEYS + 1):
+        launch_plan(num_keys, 1)
 
 
 def _raise_on(lib, rc: int, what: str) -> None:

@@ -4,6 +4,7 @@
     python -m deneva_tpu_torch.profile_tick --cell tpcc --ticks 50
     python -m deneva_tpu_torch.profile_tick --cell pps --ticks 50
     python -m deneva_tpu_torch.profile_tick --cell pps_wait_die --ticks 50
+    python -m deneva_tpu_torch.profile_tick --cell pps --compiled
 
 Runs the cell's warm-up, then times ``--ticks`` ticks with CUDA events
 (no profiler attached), counting the fused kernel's launches by pack,
@@ -12,8 +13,11 @@ debug mode), then traces them with ``torch.profiler`` and reports, per
 tick: device time by kernel, the share and launches of the fused sort +
 scan kernel, the launches of ``torch.cummax``, kernel launches, host
 syncs, and the device's idle share (1 - device busy time / tick time).
-``--table PATH`` writes every device kernel of the trace.  Needs a CUDA
-device.
+``--compiled`` does the same for the ticks of ``Engine.run_compiled``,
+replays of the captured phase graphs: their launches by pack are those
+captured in the graphs, and the sync debug mode is "error", so a replayed
+tick that synced would raise.  ``--table PATH`` writes every device
+kernel of the trace.  Needs a CUDA device.
 
 ``trace_kernels`` and ``breakdown`` are also what ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` count device kernels with.
@@ -105,11 +109,12 @@ def breakdown(kernels, reps: int) -> dict:
     }
 
 
-def host_syncs(fn, reps: int) -> tuple[float, dict]:
+def host_syncs(fn, reps: int, mode: str = "warn") -> tuple[float, dict]:
     """Calls that synchronise the host with the card per call of `fn`, as
     torch's CUDA sync debug mode reports them (one warning each), in all
-    and by the source line that made them."""
-    torch.cuda.set_sync_debug_mode("warn")
+    and by the source line that made them.  In ``mode="error"`` a sync
+    raises instead."""
+    torch.cuda.set_sync_debug_mode(mode)
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -131,6 +136,8 @@ def main(argv=None) -> int:
     ap.add_argument("--ticks", type=int, default=50)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--table", default=None)
+    ap.add_argument("--compiled", action="store_true",
+                    help="profile the replayed ticks of run_compiled")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_tick needs a CUDA device", file=sys.stderr)
@@ -139,26 +146,35 @@ def main(argv=None) -> int:
     eng = Engine(cells.config(args.cell), device="cuda")
     state = eng.run(args.warmup)
     fused.reset_launches()
-    state, per_tick = timed_run(eng, args.ticks, state)
+    state, per_tick = timed_run(eng, args.ticks, state,
+                                compiled=args.compiled)
+    if args.compiled:
+        counted = eng.graphs.launches_of(state.host_tick - args.ticks,
+                                         args.ticks)
+    else:
+        counted = fused.LAUNCHES_BY_PACK
     by_pack = {"x".join(map(str, k)): v / args.ticks
-               for k, v in sorted(fused.LAUNCHES_BY_PACK.items())}
+               for k, v in sorted(counted.items())}
+
+    box, per_call = [state], []
+
+    def tick():
+        # a replay's launches are those its graph captured
+        t, n0 = box[0].host_tick, fused.LAUNCHES
+        box[0] = eng.advance(1, box[0], args.compiled)
+        per_call.append(sum(eng.graphs.launches_of(t, 1).values())
+                        if args.compiled else fused.LAUNCHES - n0)
 
     # host time to enqueue one tick (no synchronisation inside the loop)
     torch.cuda.synchronize()
     h0 = time.perf_counter()
     for _ in range(args.ticks):
-        state = eng.tick(state)
+        tick()
     host_per_tick = (time.perf_counter() - h0) / args.ticks
     torch.cuda.synchronize()
 
-    box, per_call = [state], []
-
-    def tick():
-        n0 = fused.LAUNCHES
-        box[0] = eng.tick(box[0])
-        per_call.append(fused.LAUNCHES - n0)
-
-    syncs, sync_sites = host_syncs(tick, args.ticks)
+    syncs, sync_sites = host_syncs(tick, args.ticks,
+                                   "error" if args.compiled else "warn")
     kernels = trace_kernels(tick, args.ticks,
                             lambda: sum(per_call[-args.ticks:]))
     eng._flush_body(box[0])
@@ -172,7 +188,7 @@ def main(argv=None) -> int:
     for row in rows[:12]:
         print(row[:120])
     out = {
-        "cell": args.cell, "ticks": args.ticks,
+        "cell": args.cell, "ticks": args.ticks, "compiled": args.compiled,
         "device": torch.cuda.get_device_name(0),
         "tick_us_cuda_events": tick_us,
         "host_enqueue_us_per_tick": host_per_tick * 1e6,

@@ -3,10 +3,20 @@
 As in the reference (client/client_query.cpp:30-121), every client query
 is generated on the host before the run; the engine consumes the pool by
 cursor and wraps around when it is exhausted.
+
+The commit effects of TPC-C and PPS choose between a compacted and a
+full-width body on a device value, the reference's ``lax.cond``.
+``WorkloadPlugin.effect_branch`` makes that choice on the host in the
+eager tick (one read).  Inside ``device_branches`` (``Engine.run_compiled``
+on either device, and so in every captured CUDA graph) it runs both
+bodies on complementary masks, which is exact because a body on an empty
+mask changes nothing.  CUDA-graph conditional nodes would skip the idle
+body, but the PyTorch of the H100 host (2.11) does not expose them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -48,6 +58,23 @@ class QueryPool:
     @property
     def max_req(self) -> int:
         return self.keys.shape[1]
+
+
+#: ``device_branches`` is active (``Engine.run_compiled`` ticks in it)
+_DEVICE_BRANCHES = False
+
+
+@contextlib.contextmanager
+def device_branches():
+    """Scope in which ``effect_branch`` decides on the device, never on the
+    host; nested scopes restore the outer state on exit."""
+    global _DEVICE_BRANCHES
+    prev = _DEVICE_BRANCHES
+    _DEVICE_BRANCHES = True
+    try:
+        yield
+    finally:
+        _DEVICE_BRANCHES = prev
 
 
 def iota(n: int, device) -> torch.Tensor:
@@ -103,6 +130,60 @@ class WorkloadPlugin:
     has_effects = False
     #: names of the per-entry int32 fields ``commit_fields`` returns
     effect_fields: tuple = ()
+    #: the port's own device counters (outside the engine's stats and
+    #: tables, which are held equal to the reference's): the effect bodies
+    #: taken, "compact" and "full", and workload-specific ones
+    counter_names: tuple = ()
+
+    def __init__(self):
+        #: name -> () int32 counter on the engine's device
+        self.counters: dict = {}
+
+    def init_counters(self, device) -> None:
+        """Zero every counter on ``device`` (the engine does this before
+        any tick, so no counter is first made inside a captured graph)."""
+        self.counters = {k: torch.zeros((), dtype=I32, device=device)
+                         for k in self.counter_names}
+
+    def count(self, name: str, amount) -> None:
+        """Add ``amount`` (an int or a device scalar) to a counter, in
+        place; a standalone call on a workload without ``init_counters``
+        makes the counter on first use."""
+        if name not in self.counters:
+            dev = amount.device if torch.is_tensor(amount) else "cpu"
+            self.counters[name] = torch.zeros((), dtype=I32, device=dev)
+        c = self.counters[name]
+        c.add_(amount.to(I32) if torch.is_tensor(amount) else amount)
+
+    def counts(self) -> dict:
+        """Every counter as a host int (a read of the device)."""
+        return {k: int(self.counters[k]) if k in self.counters else 0
+                for k in self.counter_names}
+
+    @property
+    def branch_ticks(self) -> dict:
+        """``apply_commit_entries`` calls by the effect body taken, K-lane
+        "compact" or "full", read from the device counters."""
+        c = self.counts()
+        return {"compact": c.get("compact", 0), "full": c.get("full", 0)}
+
+    def effect_branch(self, fits, eff, compact_fn, full_fn) -> None:
+        """``compact_fn(eff)`` if the () bool ``fits`` holds, else
+        ``full_fn(eff)``; the body taken adds 1 to its counter.  Eager, the
+        choice is one host read of ``fits``.  Inside ``device_branches``
+        it never reads the device: both bodies run, each on its share of
+        ``eff`` (one share is empty, and a body on an empty mask changes
+        no table), and each counter adds its predicate.  The bodies update
+        tables in place and return nothing."""
+        bodies = (("compact", compact_fn, fits), ("full", full_fn, ~fits))
+        if not _DEVICE_BRANCHES:
+            name, fn, _ = bodies[0] if bool(fits) else bodies[1]
+            self.count(name, 1)
+            fn(eff)
+            return
+        for name, fn, pred in bodies:
+            self.count(name, pred)
+            fn(eff & pred)
 
     def gen_pool(self, cfg) -> QueryPool:
         raise NotImplementedError
@@ -121,10 +202,14 @@ class WorkloadPlugin:
         return {}
 
     def apply_commit_entries(self, cfg, tables: dict, key_local, part,
-                             fields: dict, cts, live) -> dict:
+                             fields: dict, cts, live,
+                             chain_passes=None) -> dict:
         """Apply the effects of the (n,) entries where ``live``, ordered
         within the tick by commit timestamp ``cts``; ``key_local`` are
-        shard-local catalog rows of shard ``part``."""
+        shard-local catalog rows of shard ``part``.  ``chain_passes`` is
+        the CC plugin's bound on committing writers of one row per tick
+        (``CCPlugin.row_writers_per_tick``); None reads an effect chain's
+        depth on the host."""
         return tables
 
     def user_abort(self, cfg, txn, finishing: torch.Tensor) -> torch.Tensor:

@@ -32,10 +32,12 @@ pass is not part of this slice (the engine refuses CALVIN).
 Commit effects run as in TPC-C (``workloads/tpcc.py``): when B*R > K, one
 sort by ``(cts, lane)`` puts the effect entries in a K-lane prefix and the
 body runs on it.  The reference chooses that body by ``lax.cond`` on the
-effect count; here the count is read on the host, one read per tick, and
-a full-width tick skips the compaction sort whose result the reference
-computes and does not use.  ``PPSWorkload.branch_ticks`` counts the bodies
-taken.  The body makes one int32 ``index_add_`` for PART_AMOUNT and one
+effect count.  The eager tick reads the count on the host, one read per
+tick, and a full-width tick skips the compaction sort whose result the
+reference computes and does not use; ``Engine.run_compiled`` runs both
+bodies on complementary masks (``WorkloadPlugin.effect_branch``).
+``PPSWorkload.branch_ticks`` counts the bodies taken, on the device.
+The body makes one int32 ``index_add_`` for PART_AMOUNT and one
 last-writer-wins sort by ``(USES row, cts)`` for the USES overwrites,
 whose winners are stored at distinct rows (``workloads/base.py``).
 """
@@ -113,10 +115,8 @@ class PPSWorkload(WorkloadPlugin):
     name = "PPS"
     has_effects = True
     effect_fields = ("role", "earg")
-
-    def __init__(self):
-        #: apply_commit_entries calls by body: K-lane "compact" or "full"
-        self.branch_ticks = {"compact": 0, "full": 0}
+    #: the effect bodies taken
+    counter_names = ("compact", "full")
 
     def _load(self, cfg: Config):
         rng = np.random.default_rng([cfg.seed, 0x995])
@@ -262,29 +262,38 @@ class PPSWorkload(WorkloadPlugin):
                 "earg": torch.where(c, txn.aux >> 3, 0)}
 
     def apply_commit_entries(self, cfg: Config, tables: dict, key_local,
-                             part, fields: dict, cts, live) -> dict:
+                             part, fields: dict, cts, live,
+                             chain_passes=None) -> dict:
         """Apply commit effects to ``tables`` in place and return it.
 
         When B*R > K, the effect entries are first compacted: one stable
         sort by cts puts them in a K-lane prefix (the reference sorts by
         ``(cts, lane)``: the same order), and the body runs on it.  A tick
-        with more than K effect entries runs the body at full width; the
-        count is read on the host (see the module docstring)."""
+        with more than K effect entries runs the body at full width
+        (``effect_branch`` decides, see the module docstring).  PPS has no
+        effect chain, so ``chain_passes`` is unused."""
         n = key_local.shape[0]
-        role_f = fields["role"]
+        role_f, earg = fields["role"], fields["earg"]
         eff = live & ((role_f & 7) != ROLE_NONE)
         K = effect_lanes(cfg, n)
-        compact = K < n and int(eff.sum(dtype=I32).item()) <= K
-        self.branch_ticks["compact" if compact else "full"] += 1
-        if not compact:
-            return self._apply_entries_body(cfg, tables, key_local, role_f,
-                                            fields["earg"], cts, eff)
-        out = seg.sort_pack(
-            (torch.where(eff, cts, OOB), key_local, role_f, fields["earg"],
-             cts, eff.to(I32)), num_keys=1)
-        c_key, c_rolef, c_earg, c_cts = (a[:K] for a in out[1:5])
-        return self._apply_entries_body(cfg, tables, c_key, c_rolef, c_earg,
-                                        c_cts, out[5][:K] == 1)
+
+        def full(m):
+            self._apply_entries_body(cfg, tables, key_local, role_f, earg,
+                                     cts, m)
+
+        def compact(m):
+            out = seg.sort_pack((torch.where(m, cts, OOB), key_local, role_f,
+                                 earg, cts, m.to(I32)), num_keys=1)
+            c_key, c_rolef, c_earg, c_cts = (a[:K] for a in out[1:5])
+            self._apply_entries_body(cfg, tables, c_key, c_rolef, c_earg,
+                                     c_cts, out[5][:K] == 1)
+
+        if K < n:
+            self.effect_branch(eff.sum(dtype=I32) <= K, eff, compact, full)
+        else:
+            self.count("full", 1)
+            full(eff)
+        return tables
 
     def _apply_entries_body(self, cfg: Config, t: dict, key_local, role_f,
                             earg, cts, eff) -> dict:

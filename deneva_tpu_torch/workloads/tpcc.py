@@ -23,22 +23,24 @@ sort (B lanes), the compaction sort (B*R lanes, 8 columns), the s_quantity
 chain sort and the three ring-append sorts (K lanes, or B*R on a
 full-width tick).
 
-Two branches of the JAX reference depend on device data, and eager
-PyTorch has neither ``lax.cond`` nor ``lax.while_loop``.  Both are read on
-the host, exactly, at one small device-to-host read each:
+Two branches of the JAX reference depend on device data:
 
 - ``n_eff <= K`` picks the K-lane compacted body or the full-width body
-  (the reference's ``lax.cond``).  Both give identical tables; the port
-  skips the compaction sort on a full-width tick, whose result the
-  reference computes and does not use.
-- ``max_rank``, the most entries one stock row has in the tick, bounds
-  the restock chain (the reference's ``while_loop``).  Under a 2PL
-  plugin two committers never share a stock row, so it is 0 there and the
-  chain runs one step.
+  (the reference's ``lax.cond``).  Both give identical tables.  The eager
+  tick reads the count on the host, once per tick, and a full-width tick
+  skips the compaction sort, whose result the reference computes and
+  does not use; ``Engine.run_compiled`` runs both bodies on complementary
+  masks (``WorkloadPlugin.effect_branch``, ``workloads/base.py``).
+- The restock chain (the reference's ``while_loop``) runs a static number
+  of passes, the CC plugin's ``row_writers_per_tick``.  Under 2PL a
+  STOCK row has at most one committing writer per tick (every committer
+  holds its X lock at once, and ``gen_pool`` draws distinct items per
+  txn), so one pass is exact.  The device counter ``restock_overflow``
+  counts ticks whose chain was deeper than the bound; it stays 0.  A
+  caller with no bound (a test of the body alone) reads the depth on the
+  host.
 
-So a tick with effects syncs the host twice when B*R > K, once otherwise
-(``profile_tick`` counts a tick's syncs); ``TPCCWorkload.branch_ticks``
-counts the bodies taken.
+``TPCCWorkload.branch_ticks`` counts the bodies taken, on the device.
 
 Scatters keep the port's discipline (the helpers of ``workloads/base.py``,
 shared with PPS).  Additive effects are int32 ``index_add_``, exact in any
@@ -232,10 +234,9 @@ class TPCCWorkload(WorkloadPlugin):
     name = "TPCC"
     has_effects = True
     effect_fields = ("role", "earg", "earg2")
-
-    def __init__(self):
-        #: apply_commit_entries calls by body: K-lane "compact" or "full"
-        self.branch_ticks = {"compact": 0, "full": 0}
+    #: the effect bodies taken, and the ticks whose restock chain was deeper
+    #: than the plugin's bound
+    counter_names = ("compact", "full", "restock_overflow")
 
     # ------------------------------------------------------------------
     # query generation (benchmarks/tpcc_query.cpp:149-263)
@@ -503,38 +504,48 @@ class TPCCWorkload(WorkloadPlugin):
         return {"role": role, "earg": earg, "earg2": earg2}
 
     def apply_commit_entries(self, cfg: Config, tables: dict, key_local,
-                             part, fields: dict, cts, live) -> dict:
+                             part, fields: dict, cts, live,
+                             chain_passes=None) -> dict:
         """Apply commit effects (run_*_1/3/5/9 + insert_row analogs) to
         ``tables`` in place and return it.
 
         When B*R > K, the effect entries are first compacted: one
         (cts, idx) sort puts them in a K-lane prefix, and the body runs on
         it.  A tick with more than K effect entries runs the body at full
-        width.  The count is read on the host (see the module docstring);
-        both bodies rank ring appends by (cts, original idx), so they give
+        width (``effect_branch`` decides, see the module docstring); both
+        bodies rank ring appends by (cts, original idx), so they give
         identical tables.
         """
         n = key_local.shape[0]
-        role_f = fields["role"]
+        role_f, earg, earg2 = fields["role"], fields["earg"], fields["earg2"]
         eff = live & ((role_f & 7) != ROLE_NONE)
         K = effect_lanes(cfg, n)
-        compact = K < n and int(eff.sum(dtype=I32).item()) <= K
-        self.branch_ticks["compact" if compact else "full"] += 1
-        if not compact:
-            return self._apply_entries_body(cfg, tables, key_local, part,
-                                            role_f, fields["earg"],
-                                            fields["earg2"], cts, eff)
-        idx = iota(n, key_local.device)
-        out = seg.sort_pack(
-            (torch.where(eff, cts, OOB), idx, key_local, role_f,
-             fields["earg"], fields["earg2"], cts, eff.to(I32)), num_keys=2)
-        c_key, c_rolef, c_earg, c_earg2, c_cts = (a[:K] for a in out[2:7])
-        return self._apply_entries_body(cfg, tables, c_key, part, c_rolef,
-                                        c_earg, c_earg2, c_cts,
-                                        out[7][:K] == 1)
+
+        def full(m):
+            self._apply_entries_body(cfg, tables, key_local, part, role_f,
+                                     earg, earg2, cts, m, chain_passes)
+
+        def compact(m):
+            out = seg.sort_pack(
+                (torch.where(m, cts, OOB), iota(n, key_local.device),
+                 key_local, role_f, earg, earg2, cts, m.to(I32)),
+                num_keys=2)
+            c_key, c_rolef, c_earg, c_earg2, c_cts = (a[:K]
+                                                      for a in out[2:7])
+            self._apply_entries_body(cfg, tables, c_key, part, c_rolef,
+                                     c_earg, c_earg2, c_cts,
+                                     out[7][:K] == 1, chain_passes)
+
+        if K < n:
+            self.effect_branch(eff.sum(dtype=I32) <= K, eff, compact, full)
+        else:
+            self.count("full", 1)
+            full(eff)
+        return tables
 
     def _apply_entries_body(self, cfg: Config, t: dict, key_local, part,
-                            role_f, earg, earg2, cts, eff) -> dict:
+                            role_f, earg, earg2, cts, eff,
+                            chain_passes=None) -> dict:
         cat = catalog(cfg)
         P = cfg.part_cnt
         n = key_local.shape[0]
@@ -578,12 +589,18 @@ class TPCCWorkload(WorkloadPlugin):
                                                            num_keys=2)
         spos = lanes - ssidx
         slive = sk != OOB
-        # the chain's depth, read on the host (the reference's while_loop)
-        max_rank = int(torch.where(slive, spos, 0).max().item())
+        if chain_passes is None:
+            # no plugin bound: the chain's depth, read on the host
+            passes = int(torch.where(slive, spos, 0).max().item()) + 1
+        else:
+            # the plugin's static bound (the reference's while_loop); a
+            # deeper chain is counted, and the tests hold the count at 0
+            passes = chain_passes
+            self.count("restock_overflow", (slive & (spos >= passes)).any())
         soff = torch.where(slive, sk - cat.tables["STOCK"].base, 0)
         sq0 = t["s_quantity"][soff.to(I64)]
         qa = sq0
-        for r in range(max_rank + 1):
+        for r in range(passes):
             q_in = torch.where(spos == 0, sq0, torch.roll(qa, 1))
             newq = torch.where(q_in > sqty + 10, q_in - sqty,
                                q_in - sqty + 91)

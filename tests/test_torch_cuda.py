@@ -321,3 +321,98 @@ def test_ordered_index_cuda_matches_cpu(dev):
                lambda i: i.range_window(los, 8, hi=his),
                lambda i: i.range_count(los, his)):
         assert torch.equal(fn(gpu).cpu(), fn(cpu))
+
+
+#: small engines whose graph replay is held to the eager tick: TPC-C and
+#: PPS at B*R > K, so both effect bodies are captured (on masks)
+GRAPH_CFGS = {
+    "ycsb": dict(batch_size=64, synth_table_size=256, req_per_query=4,
+                 query_pool_size=512, zipf_theta=0.9, warmup_ticks=7),
+    "tpcc": dict(workload="TPCC", batch_size=512, admit_cap=64, num_wh=32,
+                 cust_per_dist=1000, max_items=128, query_pool_size=4096,
+                 warmup_ticks=7),
+    "pps": dict(workload="PPS", batch_size=512, admit_cap=64,
+                max_part_key=128, max_product_key=128, max_supplier_key=128,
+                max_parts_per=5, query_pool_size=2048, warmup_ticks=7),
+}
+
+
+def _assert_same_run(eng, a, b):
+    assert eng.summary(a) == eng.summary(b)
+    assert torch.equal(a.data, b.data)
+    for k in a.tables:
+        assert torch.equal(a.tables[k], b.tables[k]), k
+    for f in a.txn._fields:
+        assert torch.equal(getattr(a.txn, f), getattr(b.txn, f)), f
+    assert int(a.tick) == int(b.tick) == a.host_tick == b.host_tick
+
+
+@pytest.mark.parametrize("cc", ["NO_WAIT", "WAIT_DIE"])
+@pytest.mark.parametrize("workload", sorted(GRAPH_CFGS))
+def test_graph_replay_matches_eager(dev, workload, cc):
+    # 40 ticks: eager, then replayed from the initial state in two calls
+    # (17 + 23: neither a multiple of the 3 flush phases); the warm-up
+    # ends inside the first call
+    cfg = Config(cc_alg=cc, fused_arbitrate=True, **GRAPH_CFGS[workload])
+    eng = Engine(cfg, device=dev)
+    c0 = eng.workload.counts()
+    se = eng.run(40)
+    c1 = eng.workload.counts()
+    fused.reset_launches()
+    sg = eng.run_compiled(23, eng.run_compiled(17))
+    c2 = eng.workload.counts()
+    _assert_same_run(eng, se, sg)
+    assert eng.summary(sg)["txn_cnt"] > 0
+    assert {k: c1[k] - c0[k] for k in c0} == {k: c2[k] - c1[k] for k in c0}
+    assert c2.get("restock_overflow", 0) == 0
+    # launches counted at capture only: the warm-up's 3 ticks and the 3
+    # phase graphs, not the 40 replays
+    per_tick = sum(eng.graphs.launches[0].values())
+    assert per_tick == {"ycsb": 2, "tpcc": 12, "pps": 5}[workload]
+    assert fused.LAUNCHES == 6 * per_tick
+    # a replayed tick never syncs the host
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = eng.advance(6, sg, compiled=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert st.host_tick == 46
+
+
+def test_graph_replay_without_fused_kernel(dev):
+    # the plain sorts (torch.sort) are captured as well
+    cfg = Config(**GRAPH_CFGS["ycsb"])
+    eng = Engine(cfg, device=dev)
+    _assert_same_run(eng, eng.run(20), eng.run_compiled(20))
+
+
+def test_graph_replay_traced_launches(dev):
+    # torch.profiler sees the fused kernels of replayed graphs: as many per
+    # tick as the phase graphs captured
+    eng = Engine(Config(cc_alg="NO_WAIT", fused_arbitrate=True,
+                        **GRAPH_CFGS["tpcc"]), device=dev)
+    box = [eng.advance(0, eng.init_state(), compiled=True)]
+
+    def replay():
+        box[0] = eng.advance(1, box[0], compiled=True)
+
+    per = breakdown(trace_kernels(replay, 6, expect_sort=6 * 12), 6)
+    assert per["fused_sort_scan_launches"] == 12, per
+
+
+def test_graph_capture_failure_raises(dev):
+    # a tick that reads the device on the host cannot be captured: the
+    # restock chain with no plugin bound reads its depth.  run_compiled
+    # raises; it never falls back to the eager tick
+    from deneva_tpu_torch.cc.no_wait import NoWait
+    from deneva_tpu_torch.engine.scheduler import make_tick
+
+    class Unbounded(NoWait):
+        row_writers_per_tick = None
+
+    eng = Engine(Config(fused_arbitrate=True, **GRAPH_CFGS["tpcc"]),
+                 device=dev)
+    eng._tick_fn = make_tick(eng.cfg, Unbounded(), eng.pool_dev,
+                             eng.workload)
+    with pytest.raises(RuntimeError, match="capture"):
+        eng.run_compiled(3)

@@ -27,7 +27,8 @@ MODULES = (
     "deneva_tpu_torch.workloads.pps", "deneva_tpu_torch.storage",
     "deneva_tpu_torch.storage.catalog", "deneva_tpu_torch.storage.ordered",
     "deneva_tpu_torch.engine.state",
-    "deneva_tpu_torch.engine.scheduler", "deneva_tpu_torch.ops.segment",
+    "deneva_tpu_torch.engine.scheduler", "deneva_tpu_torch.engine.graph",
+    "deneva_tpu_torch.ops.segment",
     "deneva_tpu_torch.ops.fused", "deneva_tpu_torch.ops.cuda_build",
     "deneva_tpu_torch.cc", "deneva_tpu_torch.cc.base",
     "deneva_tpu_torch.cc.compact", "deneva_tpu_torch.cc.twopl",
