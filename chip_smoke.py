@@ -47,12 +47,12 @@ Phases, each printing one line:
      pps and pps_wait_die cells: 300 ticks eager and 300 replayed from the
      same initial state give equal summaries, data, tables and effect
      bodies; a replayed tick makes 0 host syncs (sync debug mode "error");
-     the launches by pack captured per tick are the eager tick's plus the
-     full-width effect body's (both bodies run, on complementary masks),
-     and a traced window of replays shows them; TPC-C's restock-bound
-     counter is 0; the eager and the graph tick ms (6 windows of 50 ticks,
-     CUDA events) beside the card's name and power limit, and the peak
-     memory of both; the packs only a captured tick sorts (the full-width
+     the launches by pack captured per tick are those of a tick that takes
+     the full-width effect body (a captured tick runs it whatever the
+     reference's choice, see workloads/base.py), and a traced window of
+     replays shows them; TPC-C's restock-bound counter is 0; the eager
+     and the graph tick ms (6 windows of 50 ticks, CUDA events) beside the
+     card's name and power limit, and the peak memory of both; the packs only a captured tick sorts (the full-width
      effect body) held bit-equal to the plain version and timed.
 Then one JSON line of per-kernel numbers (one entry per pack; ``launches``
 counts the wrapper's launches on the eager paths, and for a pack only the
@@ -106,9 +106,8 @@ PACK_NAMES = {
 def tpcc_packs(eng):
     """The packs a tick of the TPC-C engine `eng` sorts, by (columns,
     keys, lanes, shift), and the kernel launches a tick makes of each
-    when it takes the compacted (K-lane) or the full-width effect body,
-    and those of every tick.  B*R lanes are those of the engine's pool; K
-    is the workload's."""
+    when it takes the compacted (K-lane) or the full-width effect body.
+    B*R lanes are those of the engine's pool; K is the workload's."""
     from deneva_tpu_torch.workloads import tpcc
     B = eng.cfg.batch_size
     N = B * eng.pool.max_req
@@ -127,14 +126,13 @@ def tpcc_packs(eng):
     compact.update({(8, 2, N, 0): 1, (3, 2, K, 0): 1, (2, 1, K, 0): 3})
     full = dict(every)
     full.update({(3, 2, N, 0): 1, (2, 1, N, 0): 4})
-    return names, compact, full, every
+    return names, compact, full
 
 
 def pps_packs(eng):
     """The packs a tick of the PPS engine `eng` sorts, by (columns, keys,
     lanes, shift), and the kernel launches a tick makes of each when it
-    takes the compacted (K-lane) or the full-width effect body, and those
-    of every tick."""
+    takes the compacted (K-lane) or the full-width effect body."""
     from deneva_tpu_torch.workloads import pps
     N = eng.cfg.batch_size * eng.pool.max_req
     K = pps.effect_lanes(eng.cfg, N)
@@ -150,7 +148,7 @@ def pps_packs(eng):
     compact.update({(6, 1, N, 0): 1, (3, 2, K, 0): 1})
     full = dict(every)
     full.update({(3, 2, N, 0): 1})
-    return names, compact, full, every
+    return names, compact, full
 
 
 def say(phase: str, msg: str) -> None:
@@ -486,7 +484,7 @@ def run_effect_cell(cells, name, Engine, timed_run, fused, dev, packs_fn,
         f"rows) generated and uploaded in {pool_s:.2f} s; tables "
         f"({mb:.1f} MB on the card) built in {tables_s:.2f} s")
     init = snapshot(state.tables)
-    names, per_compact, per_full, _ = packs_fn(eng)
+    names, per_compact, per_full = packs_fn(eng)
     wl = eng.workload
     state = eng.run(WARMUP_TICKS, state)
     before = eng.summary(state)["txn_cnt"]
@@ -714,17 +712,15 @@ def graph_packs(eng):
     """The names of the packs the cell's tick sorts, by (columns, keys,
     lanes, shift), and the launches of each per tick on the eager path
     (the compacted effect body: no full-scale tick has taken the other)
-    and per replay of a captured graph (both effect bodies, on
-    complementary masks: every-tick packs + both bodies' own)."""
+    and per replay of a captured graph (the full-width effect body, which
+    a captured tick runs whatever the reference's choice)."""
     if eng.cfg.workload == "YCSB":
         N = eng.cfg.batch_size * eng.pool.max_req
         every = {(3, 2, N, 1): 1, (2, 1, N, 0): 1}
         return PACK_NAMES, every, every
     packs_fn = tpcc_packs if eng.cfg.workload == "TPCC" else pps_packs
-    names, compact, full, every = packs_fn(eng)
-    both = {p: compact.get(p, 0) + full.get(p, 0) - every.get(p, 0)
-            for p in set(compact) | set(full)}
-    return names, compact, both
+    names, compact, full = packs_fn(eng)
+    return names, compact, full
 
 
 def host_copy(eng, state):
@@ -756,7 +752,6 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
     (``counted``) and the launches of its replays (``replayed``)."""
     from deneva_tpu_torch.profile_tick import (breakdown, host_syncs,
                                                trace_kernels)
-    from deneva_tpu_torch.workloads.base import device_branches
     eng = Engine(cells.config(name), device=dev)
     wl = eng.workload
     names, per_eager, per_graph = graph_packs(eng)
@@ -822,9 +817,9 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
     if missing:
         raise AssertionError(f"{name}: the graph path launched no "
                              f"{missing}")
-    extra = {names.get(p, p): n - per_eager.get(p, 0)
-             for p, n in sorted(per_graph.items())
-             if n != per_eager.get(p, 0)}
+    extra = {names.get(p, p): per_graph.get(p, 0) - per_eager.get(p, 0)
+             for p in sorted(set(per_graph) | set(per_eager))
+             if per_graph.get(p, 0) != per_eager.get(p, 0)}
 
     # 0 host syncs per replayed tick; a traced window of replays
     box = [state]
@@ -844,9 +839,8 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
         raise AssertionError(f"{name}: replayed tick: {syncs} host syncs at "
                              f"{sites}; {per['fused_sort_scan_launches']} "
                              f"fused launches traced, {want_sort} captured")
-    # the inputs of every pack a captured tick sorts (both bodies)
-    with device_branches():
-        packs = capture_packs(fused, lambda: eng.tick(box[0]))
+    # the inputs of every pack a captured tick sorts (the full-width body)
+    packs = capture_packs(fused, lambda: eng.tick(box[0], compiled=True))
     eng._flush_body(box[0])
 
     e_med, g_med = float(np.median(eager_ms)), float(np.median(graph_ms))
@@ -866,7 +860,7 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
         f"{per['fused_sort_scan_launches']:g} launches and "
         f"{per['fused_sort_scan_us']:.1f} us (torch.profiler, "
         f"{TRACE_TICKS} replays); idle {1 - per['device_busy_us'] / 1e3 / g_med:.3f}"
-        f"; launches per tick beyond the eager tick's: {extra or 'none'}")
+        f"; launches per tick, replayed less eager: {extra or 'none'}")
     say("graph", f"{name}: peak device memory above the engine's own "
         f"{eager_peak:.1f} MB eager, {graph_peak:.1f} MB graph (static "
         "buffers and the phase graphs' pool)")
@@ -898,8 +892,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    # CUDA-graph conditional nodes (IF bodies) through torch, which the
-    # effect branch would use in place of both bodies on masks
+    # CUDA-graph conditional nodes (IF bodies) through torch, which would
+    # let a captured tick run the compacted effect body
     cond = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} graph_conditional_nodes={cond}")

@@ -11,9 +11,11 @@ reads nothing back.
 What a captured tick keeps to (a later slice's tick too):
 
 - it reads no device value on the host: no ``.item()``, ``bool()``,
-  ``int()`` or element store from the host.  A data-dependent branch runs
-  both bodies on complementary masks (``WorkloadPlugin.effect_branch``);
-  a data-dependent loop takes a static bound from the plugin
+  ``int()`` or element store from the host.  It is the engine's tick made
+  with ``on_device``: a data-dependent branch runs a body that is exact on
+  every tick and counts the reference's choice
+  (``WorkloadPlugin.effect_branch``); a data-dependent loop takes a static
+  bound from the plugin
   (``CCPlugin.row_writers_per_tick``) and counts the ticks that would
   have gone past it;
 - every tensor that outlives the tick is a static buffer or a counter
@@ -26,9 +28,10 @@ The graphs run on static buffers, an ``EngineState`` made by
 ``Engine.init_state``.  Inside each graph, the tick's new tensors (the
 ``TxnState`` fields, ``pool_cursor``, ``ts_counter``, ``tick``) are
 copied back into those buffers; what the tick updates in place
-(``stats``, ``data``, ``tables``, ``db``) is the buffer itself.  The phase
-graphs share one memory pool: each one's intermediates die inside it, so
-replays in any order on one stream are safe.
+(``stats``, ``data``, ``tables``, ``db``) is the buffer itself.  So the
+state a replay returns is those buffers, and the next replay overwrites
+it.  The phase graphs share one memory pool: each one's intermediates die
+inside it, so replays in any order on one stream are safe.
 """
 
 from __future__ import annotations
@@ -37,7 +40,6 @@ import torch
 
 from deneva_tpu_torch.engine.scheduler import FLUSH_EVERY, EngineState
 from deneva_tpu_torch.ops import fused
-from deneva_tpu_torch.workloads.base import device_branches
 
 
 def state_items(state: EngineState) -> list:
@@ -69,9 +71,8 @@ class TickGraphs:
         self.graphs = [self._capture(p, pool) for p in range(FLUSH_EVERY)]
 
     def _warm_up(self) -> None:
-        """One eager tick of each phase on a side stream, with the branches
-        decided on the device as in the capture; the workload's counters
-        are restored after it."""
+        """One tick of each phase on a side stream, the tick that is
+        captured; the workload's counters are restored after it."""
         eng = self.engine
         dev = eng.device
         saved = {k: v.clone() for k, v in eng.workload.counters.items()}
@@ -79,10 +80,10 @@ class TickGraphs:
             fused.warm()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), device_branches():
+        with torch.cuda.stream(side):
             st = self.static
             for phase in range(FLUSH_EVERY):
-                st = eng.tick(st._replace(host_tick=phase))
+                st = eng.tick(st._replace(host_tick=phase), compiled=True)
         torch.cuda.current_stream(dev).wait_stream(side)
         for k, v in saved.items():
             eng.workload.counters[k].copy_(v)
@@ -92,8 +93,9 @@ class TickGraphs:
         graph = torch.cuda.CUDAGraph()
         before = dict(fused.LAUNCHES_BY_PACK)
         try:
-            with torch.cuda.graph(graph, pool=pool), device_branches():
-                out = self.engine.tick(self.static._replace(host_tick=phase))
+            with torch.cuda.graph(graph, pool=pool):
+                out = self.engine.tick(self.static._replace(host_tick=phase),
+                                       compiled=True)
                 self._write_back(out)
         except RuntimeError as err:
             raise RuntimeError(f"CUDA graph capture of the tick (flush phase "
@@ -105,8 +107,11 @@ class TickGraphs:
 
     def _write_back(self, out: EngineState) -> None:
         """Copy the tick's new tensors into the static buffers (captured)."""
-        for name, dst, (_, src) in zip(self.names, self.buffers,
-                                       state_items(out)):
+        items = state_items(out)
+        if [k for k, _ in items] != self.names:
+            raise ValueError("the tick returned other tensors than its "
+                             "state's")
+        for name, dst, (_, src) in zip(self.names, self.buffers, items):
             if src is dst:
                 continue
             if src.untyped_storage().data_ptr() in self._storages:
@@ -118,7 +123,7 @@ class TickGraphs:
     def replay(self, n_ticks: int, state: EngineState) -> EngineState:
         """Copy `state` into the static buffers (each tensor that is not
         already one), replay n_ticks phase graphs from ``state.host_tick``
-        and return the buffers as a state."""
+        and return the buffers as a state, valid until the next replay."""
         items = state_items(state)
         if [k for k, _ in items] != self.names:
             raise ValueError("the state's tensors are not this engine's")

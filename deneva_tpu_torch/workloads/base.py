@@ -5,18 +5,19 @@ is generated on the host before the run; the engine consumes the pool by
 cursor and wraps around when it is exhausted.
 
 The commit effects of TPC-C and PPS choose between a compacted and a
-full-width body on a device value, the reference's ``lax.cond``.
-``WorkloadPlugin.effect_branch`` makes that choice on the host in the
-eager tick (one read).  Inside ``device_branches`` (``Engine.run_compiled``
-on either device, and so in every captured CUDA graph) it runs both
-bodies on complementary masks, which is exact because a body on an empty
-mask changes nothing.  CUDA-graph conditional nodes would skip the idle
-body, but the PyTorch of the H100 host (2.11) does not expose them.
+full-width body on a device value, the reference's ``lax.cond``; both
+bodies give identical tables.  ``WorkloadPlugin.effect_branch`` makes that
+choice on the host in the eager tick (one read).  With ``on_device`` (the
+tick of ``Engine.run_compiled`` on either device, and so every captured
+CUDA graph) it reads nothing: the full-width body runs, which is exact
+on every tick, and the counters record the reference's choice.
+CUDA-graph conditional nodes would let the graph run the cheaper
+compacted body, but the PyTorch of the H100 host (2.11) does not expose
+them.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -58,23 +59,6 @@ class QueryPool:
     @property
     def max_req(self) -> int:
         return self.keys.shape[1]
-
-
-#: ``device_branches`` is active (``Engine.run_compiled`` ticks in it)
-_DEVICE_BRANCHES = False
-
-
-@contextlib.contextmanager
-def device_branches():
-    """Scope in which ``effect_branch`` decides on the device, never on the
-    host; nested scopes restore the outer state on exit."""
-    global _DEVICE_BRANCHES
-    prev = _DEVICE_BRANCHES
-    _DEVICE_BRANCHES = True
-    try:
-        yield
-    finally:
-        _DEVICE_BRANCHES = prev
 
 
 def iota(n: int, device) -> torch.Tensor:
@@ -167,23 +151,23 @@ class WorkloadPlugin:
         c = self.counts()
         return {"compact": c.get("compact", 0), "full": c.get("full", 0)}
 
-    def effect_branch(self, fits, eff, compact_fn, full_fn) -> None:
-        """``compact_fn(eff)`` if the () bool ``fits`` holds, else
-        ``full_fn(eff)``; the body taken adds 1 to its counter.  Eager, the
-        choice is one host read of ``fits``.  Inside ``device_branches``
-        it never reads the device: both bodies run, each on its share of
-        ``eff`` (one share is empty, and a body on an empty mask changes
-        no table), and each counter adds its predicate.  The bodies update
-        tables in place and return nothing."""
-        bodies = (("compact", compact_fn, fits), ("full", full_fn, ~fits))
-        if not _DEVICE_BRANCHES:
-            name, fn, _ = bodies[0] if bool(fits) else bodies[1]
+    def effect_branch(self, fits, eff, compact_fn, full_fn,
+                      on_device: bool = False) -> None:
+        """The reference's ``lax.cond``: ``compact_fn(eff)`` if the () bool
+        ``fits`` holds, else ``full_fn(eff)``, where both bodies give
+        identical tables; the body chosen adds 1 to its counter.  Eager,
+        the choice is one host read of ``fits``.  ``on_device`` reads
+        nothing: ``full_fn(eff)`` runs, and each counter adds its
+        predicate.  The bodies update tables in place and return nothing."""
+        if not on_device:
+            name, fn = ("compact", compact_fn) if bool(fits) \
+                else ("full", full_fn)
             self.count(name, 1)
             fn(eff)
             return
-        for name, fn, pred in bodies:
-            self.count(name, pred)
-            fn(eff & pred)
+        self.count("compact", fits)
+        self.count("full", ~fits)
+        full_fn(eff)
 
     def gen_pool(self, cfg) -> QueryPool:
         raise NotImplementedError
@@ -203,13 +187,15 @@ class WorkloadPlugin:
 
     def apply_commit_entries(self, cfg, tables: dict, key_local, part,
                              fields: dict, cts, live,
-                             chain_passes=None) -> dict:
+                             chain_passes=None,
+                             on_device: bool = False) -> dict:
         """Apply the effects of the (n,) entries where ``live``, ordered
         within the tick by commit timestamp ``cts``; ``key_local`` are
         shard-local catalog rows of shard ``part``.  ``chain_passes`` is
         the CC plugin's bound on committing writers of one row per tick
         (``CCPlugin.row_writers_per_tick``); None reads an effect chain's
-        depth on the host."""
+        depth on the host.  ``on_device`` makes the effect branch on the
+        device (``effect_branch``)."""
         return tables
 
     def user_abort(self, cfg, txn, finishing: torch.Tensor) -> torch.Tensor:

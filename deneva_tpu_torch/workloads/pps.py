@@ -34,8 +34,9 @@ sort by ``(cts, lane)`` puts the effect entries in a K-lane prefix and the
 body runs on it.  The reference chooses that body by ``lax.cond`` on the
 effect count.  The eager tick reads the count on the host, one read per
 tick, and a full-width tick skips the compaction sort whose result the
-reference computes and does not use; ``Engine.run_compiled`` runs both
-bodies on complementary masks (``WorkloadPlugin.effect_branch``).
+reference computes and does not use; ``Engine.run_compiled`` runs the
+full-width body on every tick and counts the reference's choice on the
+device (``WorkloadPlugin.effect_branch``).
 ``PPSWorkload.branch_ticks`` counts the bodies taken, on the device.
 The body makes one int32 ``index_add_`` for PART_AMOUNT and one
 last-writer-wins sort by ``(USES row, cts)`` for the USES overwrites,
@@ -263,15 +264,17 @@ class PPSWorkload(WorkloadPlugin):
 
     def apply_commit_entries(self, cfg: Config, tables: dict, key_local,
                              part, fields: dict, cts, live,
-                             chain_passes=None) -> dict:
+                             chain_passes=None,
+                             on_device: bool = False) -> dict:
         """Apply commit effects to ``tables`` in place and return it.
 
         When B*R > K, the effect entries are first compacted: one stable
         sort by cts puts them in a K-lane prefix (the reference sorts by
         ``(cts, lane)``: the same order), and the body runs on it.  A tick
         with more than K effect entries runs the body at full width
-        (``effect_branch`` decides, see the module docstring).  PPS has no
-        effect chain, so ``chain_passes`` is unused."""
+        (``effect_branch`` decides, see the module docstring), and every
+        tick does with ``on_device``.  PPS has no effect chain, so
+        ``chain_passes`` is unused."""
         n = key_local.shape[0]
         role_f, earg = fields["role"], fields["earg"]
         eff = live & ((role_f & 7) != ROLE_NONE)
@@ -289,7 +292,8 @@ class PPSWorkload(WorkloadPlugin):
                                      c_cts, out[5][:K] == 1)
 
         if K < n:
-            self.effect_branch(eff.sum(dtype=I32) <= K, eff, compact, full)
+            self.effect_branch(eff.sum(dtype=I32) <= K, eff, compact, full,
+                               on_device)
         else:
             self.count("full", 1)
             full(eff)

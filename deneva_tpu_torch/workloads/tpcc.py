@@ -29,8 +29,9 @@ Two branches of the JAX reference depend on device data:
   (the reference's ``lax.cond``).  Both give identical tables.  The eager
   tick reads the count on the host, once per tick, and a full-width tick
   skips the compaction sort, whose result the reference computes and
-  does not use; ``Engine.run_compiled`` runs both bodies on complementary
-  masks (``WorkloadPlugin.effect_branch``, ``workloads/base.py``).
+  does not use; ``Engine.run_compiled`` runs the full-width body on every
+  tick and counts the reference's choice on the device
+  (``WorkloadPlugin.effect_branch``, ``workloads/base.py``).
 - The restock chain (the reference's ``while_loop``) runs a static number
   of passes, the CC plugin's ``row_writers_per_tick``.  Under 2PL a
   STOCK row has at most one committing writer per tick (every committer
@@ -505,7 +506,8 @@ class TPCCWorkload(WorkloadPlugin):
 
     def apply_commit_entries(self, cfg: Config, tables: dict, key_local,
                              part, fields: dict, cts, live,
-                             chain_passes=None) -> dict:
+                             chain_passes=None,
+                             on_device: bool = False) -> dict:
         """Apply commit effects (run_*_1/3/5/9 + insert_row analogs) to
         ``tables`` in place and return it.
 
@@ -514,7 +516,8 @@ class TPCCWorkload(WorkloadPlugin):
         it.  A tick with more than K effect entries runs the body at full
         width (``effect_branch`` decides, see the module docstring); both
         bodies rank ring appends by (cts, original idx), so they give
-        identical tables.
+        identical tables.  ``on_device`` runs the full-width body on every
+        tick and reads nothing on the host.
         """
         n = key_local.shape[0]
         role_f, earg, earg2 = fields["role"], fields["earg"], fields["earg2"]
@@ -537,7 +540,8 @@ class TPCCWorkload(WorkloadPlugin):
                                      out[7][:K] == 1, chain_passes)
 
         if K < n:
-            self.effect_branch(eff.sum(dtype=I32) <= K, eff, compact, full)
+            self.effect_branch(eff.sum(dtype=I32) <= K, eff, compact, full,
+                               on_device)
         else:
             self.count("full", 1)
             full(eff)

@@ -195,15 +195,15 @@ def test_unbounded_effect_chain_reads_the_host(monkeypatch):
         row_writers_per_tick = None
 
     eng = TEngine(TConfig(**GUARD_CFGS["tpcc"]), device="cpu")
-    eng._tick_fn = make_tick(eng.cfg, Unbounded(), eng.pool_dev,
-                             eng.workload)
+    eng._tick_fns[True] = make_tick(eng.cfg, Unbounded(), eng.pool_dev,
+                                    eng.workload, on_device=True)
     with _no_host_reads(monkeypatch), \
             pytest.raises(AssertionError, match="host read"):
         eng.run_compiled(2)
 
 
 # ---------------------------------------------------------------------------
-# a body on an empty mask changes nothing (what both-bodies relies on)
+# a body on an empty mask changes nothing (a tick with no commit effect)
 # ---------------------------------------------------------------------------
 
 
@@ -284,16 +284,17 @@ def test_restock_overflow_counts_chains_past_the_bound():
 
 
 def test_effect_branch_on_device_masks():
-    # inside device_branches both bodies run, each on its share of the
-    # mask, and each counter adds its predicate
+    # on the device the full-width body runs on the whole mask whatever the
+    # predicate, the compacted one never, and each counter adds its
+    # predicate (the reference's choice)
     wl = tpcc.TPCCWorkload()
     eff = torch.tensor([True, False, True])
-    seen = {}
     for fits in (True, False):
-        with base.device_branches():
-            wl.effect_branch(torch.tensor(fits), eff,
-                             lambda m: seen.__setitem__("compact", m),
-                             lambda m: seen.__setitem__("full", m))
-        assert torch.equal(seen["compact"], eff & fits)
-        assert torch.equal(seen["full"], eff & (not fits))
+        seen = {}
+        wl.effect_branch(torch.tensor(fits), eff,
+                         lambda m: seen.__setitem__("compact", m),
+                         lambda m: seen.__setitem__("full", m),
+                         on_device=True)
+        assert list(seen) == ["full"]
+        assert torch.equal(seen["full"], eff)
     assert wl.branch_ticks == {"compact": 1, "full": 1}

@@ -368,7 +368,7 @@ def test_graph_replay_matches_eager(dev, workload, cc):
     # launches counted at capture only: the warm-up's 3 ticks and the 3
     # phase graphs, not the 40 replays
     per_tick = sum(eng.graphs.launches[0].values())
-    assert per_tick == {"ycsb": 2, "tpcc": 12, "pps": 5}[workload]
+    assert per_tick == {"ycsb": 2, "tpcc": 7, "pps": 3}[workload]
     assert fused.LAUNCHES == 6 * per_tick
     # a replayed tick never syncs the host
     torch.cuda.set_sync_debug_mode("error")
@@ -396,8 +396,8 @@ def test_graph_replay_traced_launches(dev):
     def replay():
         box[0] = eng.advance(1, box[0], compiled=True)
 
-    per = breakdown(trace_kernels(replay, 6, expect_sort=6 * 12), 6)
-    assert per["fused_sort_scan_launches"] == 12, per
+    per = breakdown(trace_kernels(replay, 6, expect_sort=6 * 7), 6)
+    assert per["fused_sort_scan_launches"] == 7, per
 
 
 def test_graph_capture_failure_raises(dev):
@@ -412,7 +412,7 @@ def test_graph_capture_failure_raises(dev):
 
     eng = Engine(Config(fused_arbitrate=True, **GRAPH_CFGS["tpcc"]),
                  device=dev)
-    eng._tick_fn = make_tick(eng.cfg, Unbounded(), eng.pool_dev,
-                             eng.workload)
+    eng._tick_fns[True] = make_tick(eng.cfg, Unbounded(), eng.pool_dev,
+                                    eng.workload, on_device=True)
     with pytest.raises(RuntimeError, match="capture"):
         eng.run_compiled(3)

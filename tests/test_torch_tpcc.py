@@ -23,7 +23,6 @@ from deneva_tpu_torch.config import Config as TConfig  # noqa: E402
 from deneva_tpu_torch.engine import state as tstate  # noqa: E402
 from deneva_tpu_torch.engine.scheduler import Engine as TEngine  # noqa: E402
 from deneva_tpu_torch.workloads import tpcc  # noqa: E402
-from deneva_tpu_torch.workloads.base import device_branches  # noqa: E402
 
 POOL_FIELDS = ("keys", "is_write", "n_req", "home_part", "txn_type", "args",
                "aux")
@@ -222,8 +221,9 @@ def test_apply_commit_entries_matches_reference(case):
 
 @pytest.mark.parametrize("case", sorted(APPLY_CASES))
 def test_apply_commit_entries_on_device_branches(case):
-    # as run_compiled applies them: both bodies, each on its share of the
-    # effect mask (workloads/base.py effect_branch); the reference's tables
+    # as run_compiled applies them: the full-width body on every tick, the
+    # reference's choice counted on the device (workloads/base.py
+    # effect_branch); the reference's tables
     n, live_frac = APPLY_CASES[case]
     kw = tpcc_kw(batch_size=512, admit_cap=16, num_wh=8)
     cfg = TConfig(**kw)
@@ -235,11 +235,11 @@ def test_apply_commit_entries_on_device_branches(case):
         {f: jnp.asarray(e[f]) for f in ("role", "earg", "earg2")},
         jnp.asarray(e["cts"]), jnp.asarray(e["live"]))
     wl = tpcc.TPCCWorkload()
-    with device_branches():
-        got = wl.apply_commit_entries(
-            cfg, wl.init_tables(cfg, 0), torch.from_numpy(e["key"]), 0,
-            {f: torch.from_numpy(e[f]) for f in ("role", "earg", "earg2")},
-            torch.from_numpy(e["cts"]), torch.from_numpy(e["live"]))
+    got = wl.apply_commit_entries(
+        cfg, wl.init_tables(cfg, 0), torch.from_numpy(e["key"]), 0,
+        {f: torch.from_numpy(e[f]) for f in ("role", "earg", "earg2")},
+        torch.from_numpy(e["cts"]), torch.from_numpy(e["live"]),
+        on_device=True)
     _assert_tables_equal(want, got)
     branch = "full" if case == "narrow" else case
     assert wl.branch_ticks == {"compact": 0, "full": 0, branch: 1}
