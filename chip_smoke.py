@@ -43,10 +43,22 @@ Phases, each printing one line:
      pack, tick time, no torch.cummax left in the tick, 1 host sync per
      tick), then CPU == CUDA on pps_wait_die and on the headline and tpcc
      cells under WAIT_DIE (fewer ticks, see WD_CPU_TICKS);
- 13. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
-     pps and pps_wait_die cells: 300 ticks eager and 300 replayed from the
-     same initial state give equal summaries, data, tables and effect
-     bodies; a replayed tick makes 0 host syncs (sync debug mode "error");
+ 13. TIMESTAMP (basic T/O): the headline_timestamp cell as phase 4 (the
+     [summary] line, commits per tick, abort rate, 2 launches per tick by
+     pack, no fallback, a traced window with 0 host syncs), the device
+     time of the in-place timestamp rebase of its 16M-row wts/rts, and the
+     tpcc_timestamp cell as phase 6 (2 host syncs per tick: the effect
+     branch and the restock chain's depth, read on the host) with the
+     histogram of restock passes per tick over its 300 ticks, the deepest
+     chain beside the plugin's graph bound; every T/O pack captured from a
+     tick, held bit-equal to the plain version and timed; then CPU == CUDA
+     under TIMESTAMP on the three workloads and on the headline with
+     ts_twr (fewer ticks, see TO_CPU_TICKS), wts and rts included;
+ 14. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
+     pps, pps_wait_die, headline_timestamp and tpcc_timestamp cells: 300
+     ticks eager and 300 replayed from the same initial state give equal
+     summaries, data, tables, CC state (wts, rts) and effect bodies; a
+     replayed tick makes 0 host syncs (sync debug mode "error");
      the launches by pack captured per tick are those of a tick that takes
      the full-width effect body (a captured tick runs it whatever the
      reference's choice, see workloads/base.py), and a traced window of
@@ -64,6 +76,7 @@ nonzero; without a CUDA device it exits nonzero before printing a result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -93,14 +106,34 @@ PPS_TICKS = 300
 PPS_CPU_TICKS = 40
 #: ticks of the CPU == CUDA checks under WAIT_DIE, by cell
 WD_CPU_TICKS = {"pps_wait_die": 40, "headline": 20, "tpcc": 20}
+#: ticks of the CPU == CUDA checks under TIMESTAMP, by cell and overrides
+TO_CPU_TICKS = (("headline_timestamp", {}, 20), ("tpcc_timestamp", {}, 20),
+                ("pps", {"cc_alg": "TIMESTAMP"}, 20),
+                ("headline_timestamp", {"ts_twr": True}, 20))
 #: cells of the graph phase, and its ticks on each path
-GRAPH_CELLS = ("headline", "tpcc", "pps", "pps_wait_die")
+GRAPH_CELLS = ("headline", "tpcc", "pps", "pps_wait_die",
+               "headline_timestamp", "tpcc_timestamp")
 GRAPH_TICKS = 300
 #: the packs a headline tick sorts, as (columns, keys, lanes, shift)
 PACK_NAMES = {
     (3, 2, MAIN_N, 1): "headline lock sort",
     (2, 1, MAIN_N, 0): "headline unpermute",
 }
+
+
+def access_packs(eng, prefix):
+    """The access phase's first sort in a tick of `eng` at its B*R lanes,
+    by (columns, keys, lanes, shift), with its name, and the launches per
+    tick: 2PL's lock sort (keykind, ts, payload) by 2 keys with the row
+    shift, or T/O's decision sort (key, ts, is_write, held, req, w_abort,
+    lane) by 2 keys.  Both are followed by the unpermute, 2 columns by 1
+    key at the same width."""
+    N = eng.cfg.batch_size * eng.pool.max_req
+    if eng.plugin.name == "TIMESTAMP":
+        pack, name = (7, 2, N, 0), "T/O decision sort"
+    else:
+        pack, name = (3, 2, N, 1), "lock sort"
+    return {pack: f"{prefix} {name}"}, {pack: 1}
 
 
 def tpcc_packs(eng):
@@ -112,8 +145,9 @@ def tpcc_packs(eng):
     B = eng.cfg.batch_size
     N = B * eng.pool.max_req
     K = tpcc.effect_lanes(eng.cfg, N)
+    acc_names, every = access_packs(eng, "tpcc")
     names = {
-        (3, 2, N, 1): "tpcc lock sort",
+        **acc_names,
         (2, 1, N, 0): "tpcc unpermute (+ 3 full-width ring appends)",
         (8, 2, N, 0): "tpcc effect compaction",
         (2, 1, B, 0): "tpcc o_id rank",
@@ -121,7 +155,7 @@ def tpcc_packs(eng):
         (2, 1, K, 0): "tpcc ring appends",
         (3, 2, N, 0): "tpcc restock chain, full width",
     }
-    every = {(3, 2, N, 1): 1, (2, 1, N, 0): 1, (2, 1, B, 0): 1}
+    every.update({(2, 1, N, 0): 1, (2, 1, B, 0): 1})
     compact = dict(every)
     compact.update({(8, 2, N, 0): 1, (3, 2, K, 0): 1, (2, 1, K, 0): 3})
     full = dict(every)
@@ -136,14 +170,15 @@ def pps_packs(eng):
     from deneva_tpu_torch.workloads import pps
     N = eng.cfg.batch_size * eng.pool.max_req
     K = pps.effect_lanes(eng.cfg, N)
+    acc_names, every = access_packs(eng, "pps")
     names = {
-        (3, 2, N, 1): "pps lock sort",
+        **acc_names,
         (2, 1, N, 0): "pps unpermute",
         (6, 1, N, 0): "pps effect compaction",
         (3, 2, K, 0): "pps USES last-writer-wins",
         (3, 2, N, 0): "pps USES last-writer-wins, full width",
     }
-    every = {(3, 2, N, 1): 1, (2, 1, N, 0): 1}
+    every[(2, 1, N, 0)] = 1
     compact = dict(every)
     compact.update({(6, 1, N, 0): 1, (3, 2, K, 0): 1})
     full = dict(every)
@@ -355,10 +390,11 @@ def measure_pack(fused, name, cols, nk, shift):
                 bound_ms=bms, bound_by=by)
 
 
-def phase_trace(eng, state):
-    """A torch.profiler trace of TRACE_TICKS headline ticks: the kernel's
-    device launches per tick and the cummax kernels left in the tick;
-    then the same ticks under the CUDA sync debug mode: no host sync."""
+def phase_trace(eng, state, name="headline"):
+    """A torch.profiler trace of TRACE_TICKS ticks of a YCSB cell: the
+    kernel's device launches per tick and the cummax kernels left in the
+    tick; then the same ticks under the CUDA sync debug mode: no host
+    sync.  Returns the state after them."""
     from deneva_tpu_torch.profile_tick import (breakdown, host_syncs,
                                                trace_kernels)
     box = [state]
@@ -368,7 +404,7 @@ def phase_trace(eng, state):
 
     per = breakdown(trace_kernels(tick, TRACE_TICKS, 2 * TRACE_TICKS),
                     TRACE_TICKS)
-    say("trace", f"{TRACE_TICKS} headline ticks (torch.profiler): "
+    say("trace", f"{TRACE_TICKS} {name} ticks (torch.profiler): "
         f"{per['kernel_launches']:.1f} device launches per tick, device "
         f"busy {per['device_busy_us']:.1f} us per tick, fused kernel "
         f"{per['fused_sort_scan_launches']:g} launches per tick, cummax "
@@ -377,17 +413,24 @@ def phase_trace(eng, state):
         raise AssertionError(f"{per['fused_sort_scan_launches']} fused "
                              "kernel launches per traced tick, expected 2")
     if per["cummax_launches"]:
-        raise AssertionError("the headline tick still runs torch.cummax")
+        raise AssertionError(f"the {name} tick still runs torch.cummax")
     syncs, sites = host_syncs(tick, TRACE_TICKS)
+    say("trace", f"{TRACE_TICKS} {name} ticks (CUDA sync debug mode): "
+        f"{syncs:g} host syncs per tick")
     if syncs:
-        raise AssertionError(f"the headline tick syncs the host: {sites}")
+        raise AssertionError(f"the {name} tick syncs the host: {sites}")
+    return box[0]
 
 
-def phase_headline(cells, Engine, timed_run, fused, dev):
-    cfg = cells.config("headline")
+def phase_headline(cells, Engine, timed_run, fused, dev, name="headline"):
+    """The YCSB cell `name` on the card: HEADLINE_TICKS ticks in timed
+    windows, 2 kernel launches per tick, no fallback, the increment oracle
+    and a traced window.  Returns the engine, the state after the traced
+    ticks, and the launches by pack."""
+    cfg = cells.config(name)
     t0 = time.perf_counter()
     eng = Engine(cfg, device=dev)
-    say("headline", f"engine built in {time.perf_counter() - t0:.1f} s "
+    say(name, f"engine built in {time.perf_counter() - t0:.1f} s "
         "(query pool generated on the host)")
     state = eng.run(WARMUP_TICKS)
     before = eng.summary(state)["txn_cnt"]
@@ -407,13 +450,13 @@ def phase_headline(cells, Engine, timed_run, fused, dev):
     commits = s["txn_cnt"] - before
     tick_ms = float(np.median(window_ms))
     print(eng.summary_line(state))
-    say("headline", f"ticks={HEADLINE_TICKS} commits_per_tick="
+    say(name, f"ticks={HEADLINE_TICKS} commits_per_tick="
         f"{commits / HEADLINE_TICKS} tick_ms median={tick_ms:.4f} "
         f"min={min(window_ms):.4f} max={max(window_ms):.4f} over "
         f"{len(window_ms)} windows of {WINDOW_TICKS} ticks (cuda events) "
         f"committed_txn_per_s={commits / HEADLINE_TICKS / tick_ms * 1e3:.1f}"
         f" abort_rate={s['abort_rate']:.6f} peak_mem_mb={peak / 2**20:.1f}")
-    say("headline", f"kernel launches={launches} by pack={by_pack} "
+    say(name, f"kernel launches={launches} by pack={by_pack} "
         f"fallbacks={snap['count']}")
     if launches != 2 * HEADLINE_TICKS:
         raise AssertionError(f"expected {2 * HEADLINE_TICKS} kernel "
@@ -423,9 +466,8 @@ def phase_headline(cells, Engine, timed_run, fused, dev):
     if int(state.data.sum().item()) != s["write_cnt"]:
         raise AssertionError("data.sum() != write_cnt on the CUDA run")
     if not s["txn_cnt"] > 0 or not math.isfinite(tick_ms):
-        raise AssertionError("the headline run committed nothing")
-    phase_trace(eng, state)
-    return by_pack
+        raise AssertionError(f"the {name} run committed nothing")
+    return eng, phase_trace(eng, state, name), by_pack
 
 
 def capture_packs(fused, fn):
@@ -492,6 +534,8 @@ def run_effect_cell(cells, name, Engine, timed_run, fused, dev, packs_fn,
     fused.reset_fallbacks()
     fused.reset_launches()
     branch0 = dict(wl.branch_ticks)
+    if hasattr(wl, "chain_depths"):
+        wl.chain_depths.clear()
     window_ms = []
     for _ in range(ticks // WINDOW_TICKS):
         state, per_tick = timed_run(eng, WINDOW_TICKS, state)
@@ -537,11 +581,11 @@ def run_effect_cell(cells, name, Engine, timed_run, fused, dev, packs_fn,
                                   tick_ms=tick_ms)
 
 
-def trace_cell(name, eng, state, fused, want_syncs, sync_file):
+def trace_cell(name, eng, state, fused, want_syncs, sync_files):
     """A traced window of the cell's ticks: the kernel's device launches
     per tick equal the wrapper's count over the same ticks; then the host
     syncs of a tick (CUDA sync debug mode) must be `want_syncs`, all at
-    lines of `sync_file`.  Returns the packs of one more tick, captured,
+    lines of the files `sync_files`.  Returns the packs of one more tick, captured,
     and the trace's per-tick numbers; flushes the state."""
     from deneva_tpu_torch.profile_tick import (breakdown, host_syncs,
                                                trace_kernels)
@@ -569,7 +613,7 @@ def trace_cell(name, eng, state, fused, want_syncs, sync_file):
     say("trace", f"{TRACE_TICKS} {name} ticks (CUDA sync debug mode): "
         f"{syncs:g} host syncs per tick at {sites}")
     if round(syncs, 6) != want_syncs or not all(
-            k.startswith(sync_file + ":") for k in sites):
+            k.split(":")[0] in sync_files for k in sites):
         raise AssertionError(f"expected the {want_syncs} host reads of the "
                              f"effect step per tick, saw {syncs} at {sites}")
     packs = capture_packs(fused, tick)
@@ -592,7 +636,7 @@ def phase_tpcc(cells, Engine, timed_run, fused, dev):
     say("tpcc", f"conservation holds ({', '.join(laws)}): {payments} "
         f"Payments, {neworders} NewOrders; data.sum() == write_cnt")
     # the one host read of the effect step (its compact/full choice)
-    packs, _ = trace_cell("tpcc", eng, state, fused, 1, "base.py")
+    packs, _ = trace_cell("tpcc", eng, state, fused, 1, ("base.py",))
     return eng.pool, rec["by_pack"], packs, rec["names"]
 
 
@@ -635,7 +679,7 @@ def phase_pps(cells, Engine, timed_run, fused, dev):
         f"(-1 each), {upd} UPDATEPART commits (+100 each); "
         "data.sum() == write_cnt")
     # the one host read of the effect step (its compact/full choice)
-    packs, _ = trace_cell("pps", eng, state, fused, 1, "base.py")
+    packs, _ = trace_cell("pps", eng, state, fused, 1, ("base.py",))
     return eng.pool, rec["by_pack"], packs, rec["names"]
 
 
@@ -648,7 +692,7 @@ def phase_wait_die(cells, Engine, timed_run, fused, dev):
         PPS_TICKS, part_amount_sum)
     if not rec["s"]["twopl_wait_cnt"] > 0:
         raise AssertionError("no WAIT decision in the pps_wait_die run")
-    _, per = trace_cell("pps_wait_die", eng, state, fused, 1, "base.py")
+    _, per = trace_cell("pps_wait_die", eng, state, fused, 1, ("base.py",))
     say("pps_wait_die", f"torch.cummax launches per tick: "
         f"{per['cummax_launches']:g} (WAIT_DIE's minimum held ts is a "
         "gather)")
@@ -661,7 +705,10 @@ def phase_cpu_equal(cells, name, Engine, dev, ticks, pool=None, **over):
     """The cell `name` (with `over`) on the port's CPU path and on CUDA for
     `ticks` ticks on one pool: summary dicts, data, every table and the
     effect bodies taken (``branch_ticks``, where the workload has them)
-    equal.  Returns the CPU run's summary, engine and state."""
+    equal, and so are the CC plugin's arrays (TIMESTAMP's wts and rts) and
+    the restock passes read per tick (TPC-C without a static bound).
+    Returns the CPU run's summary, engine and state, and the CUDA run's
+    engine and state."""
     cfg = cells.config(name, **over)
     gpu = Engine(cfg, pool=pool, device=dev)
     cpu = Engine(cfg, pool=gpu.pool, device="cpu")
@@ -682,30 +729,103 @@ def phase_cpu_equal(cells, name, Engine, dev, ticks, pool=None, **over):
            if not torch.equal(sg.tables[k].cpu(), sc.tables[k])]
     if bad or sorted(sg.tables) != sorted(sc.tables):
         raise AssertionError(f"{label}: CUDA and CPU tables differ: {bad}")
-    if (getattr(gpu.workload, "branch_ticks", None)
-            != getattr(cpu.workload, "branch_ticks", None)):
-        raise AssertionError(f"{label}: CUDA and CPU took other effect "
-                             "bodies")
+    bad = [k for k in sc.db if not torch.equal(sg.db[k].cpu(), sc.db[k])]
+    if bad or sorted(sg.db) != sorted(sc.db):
+        raise AssertionError(f"{label}: CUDA and CPU CC state differs: {bad}")
+    for what in ("branch_ticks", "chain_depths"):
+        if getattr(gpu.workload, what, None) \
+                != getattr(cpu.workload, what, None):
+            raise AssertionError(f"{label}: CUDA and CPU {what} differ")
     if int(sc.data.sum().item()) != b["write_cnt"]:
         raise AssertionError(f"{label}: data.sum() != write_cnt on the CPU")
-    say("cpu", f"{label} {ticks} ticks: CUDA and CPU summary dicts, data "
-        f"and all {len(sc.tables)} tables equal (txn_cnt={b['txn_cnt']}, "
-        f"total_txn_abort_cnt={b['total_txn_abort_cnt']}, twopl_wait_cnt="
-        f"{b['twopl_wait_cnt']}); CPU run {cpu_s:.1f} s")
-    return b, cpu, sc
+    say("cpu", f"{label} {ticks} ticks: CUDA and CPU summary dicts, data, "
+        f"all {len(sc.tables)} tables and {sorted(sc.db) or 'no'} CC arrays "
+        f"equal (txn_cnt={b['txn_cnt']}, total_txn_abort_cnt="
+        f"{b['total_txn_abort_cnt']}, twopl_wait_cnt={b['twopl_wait_cnt']})"
+        f"; CPU run {cpu_s:.1f} s")
+    return b, cpu, sc, gpu, sg
 
 
 def phase_tpcc_cpu_equal(cells, Engine, dev, pool):
     """``phase_cpu_equal`` on the tpcc cell, then TPC-C's conservation laws
     on the CPU run's tables."""
     from deneva_tpu_torch.workloads import tpcc
-    s, cpu, sc = phase_cpu_equal(cells, "tpcc", Engine, dev, TPCC_CPU_TICKS,
-                                 pool=pool)
+    s, cpu, sc, _, _ = phase_cpu_equal(cells, "tpcc", Engine, dev,
+                                       TPCC_CPU_TICKS, pool=pool)
     init = tpcc.checksums(cpu.init_state().tables)
     _, _, laws = check_tpcc_conservation(tpcc, cpu.cfg, init, sc.tables, s)
     say("cpu", f"tpcc: user_abort_cnt={s['user_abort_cnt']}, order_cursor="
         f"{int(tpcc.ring_view(sc.tables, 'order_cursor'))}; conservation "
         f"holds ({', '.join(laws)})")
+
+
+def phase_timestamp(cells, Engine, timed_run, fused, dev, rows, names,
+                    by_pack, pps_pool):
+    """TIMESTAMP on the card (phase 13 of the module docstring).  The
+    packs a T/O tick sorts that earlier phases did not are held to the
+    plain version and timed into `rows`, named in `names`, and their
+    launches on these paths go into `by_pack`."""
+    from deneva_tpu_torch.profile_tick import breakdown, trace_kernels
+    from deneva_tpu_torch.workloads import tpcc
+
+    def measure_new(packs, cell_names, cell, counted):
+        new = {p: c for p, c in packs.items() if p not in rows}
+        names.update(cell_names)
+        measure_captured(fused, rows, new, cell_names, names, cell)
+        by_pack.update({p: counted.get(p, 0) for p in new})
+
+    eng, state, hb = phase_headline(cells, Engine, timed_run, fused, dev,
+                                    "headline_timestamp")
+    acc_names, _ = access_packs(eng, "headline")
+    measure_new(capture_packs(fused, lambda: eng.tick(state)),
+                {**PACK_NAMES, **acc_names}, "headline_timestamp", hb)
+    # the rebase runs on every tick (a select, no host read): in place on
+    # both 16M-row arrays, here with the shift of a tick that does not
+    # rebase
+    shift = torch.zeros((), dtype=torch.int64, device=dev)
+    per = breakdown(trace_kernels(
+        lambda: eng.plugin.on_ts_rebase(eng.cfg, state.db, shift), 20), 20)
+    say("headline_timestamp", f"timestamp rebase (in place on wts and rts, "
+        f"{state.db['wts'].numel()} rows each): {per['device_busy_us']:.1f}"
+        f" us of device time and {per['kernel_launches']:g} launches per "
+        "tick (torch.profiler, 20 calls)")
+    del eng, state
+
+    eng, state, init, rec = run_effect_cell(
+        cells, "tpcc_timestamp", Engine, timed_run, fused, dev, tpcc_packs,
+        TPCC_TICKS, tpcc.checksums)
+    depths = dict(sorted(eng.workload.chain_depths.items()))
+    payments, neworders, laws = check_tpcc_conservation(
+        tpcc, eng.cfg, init, state.tables, rec["s"])
+    say("tpcc_timestamp", f"conservation holds ({', '.join(laws)}): "
+        f"{payments} Payments, {neworders} NewOrders")
+    bound = eng.plugin.graph_row_writers_per_tick
+    say("tpcc_timestamp", f"restock passes per tick (the committers of "
+        f"the deepest STOCK row, read on the host) over {TPCC_TICKS} ticks:"
+        f" {depths}; deepest {max(depths)}, graph bound {bound}")
+    if sum(depths.values()) != TPCC_TICKS:
+        raise AssertionError("not every tpcc_timestamp tick read its "
+                             "restock chain's depth")
+    # the two host reads of an eager tick: the effect branch and the depth
+    packs, _ = trace_cell("tpcc_timestamp", eng, state, fused, 2,
+                          ("base.py", "tpcc.py"))
+    measure_new(packs, rec["names"], "tpcc_timestamp", rec["by_pack"])
+    del eng, state
+
+    for name, over, ticks in TO_CPU_TICKS:
+        pool = pps_pool if name == "pps" else None
+        fused.reset_launches()
+        s, _, _, gpu, sg = phase_cpu_equal(cells, name, Engine, dev, ticks,
+                                           pool=pool, **over)
+        counted = dict(fused.LAUNCHES_BY_PACK)
+        if not (s["txn_cnt"] > 0 and s["total_txn_abort_cnt"] > 0):
+            raise AssertionError(f"{name} {over}: no commit or no abort")
+        if name == "pps":
+            # the pps T/O pack, from one tick of the CUDA run; its
+            # launches are those of that run
+            pnames, _, _ = pps_packs(gpu)
+            packs = capture_packs(fused, lambda: gpu.tick(sg))
+            measure_new(packs, pnames, "pps under TIMESTAMP", counted)
 
 
 def graph_packs(eng):
@@ -716,17 +836,20 @@ def graph_packs(eng):
     a captured tick runs whatever the reference's choice)."""
     if eng.cfg.workload == "YCSB":
         N = eng.cfg.batch_size * eng.pool.max_req
-        every = {(3, 2, N, 1): 1, (2, 1, N, 0): 1}
-        return PACK_NAMES, every, every
+        acc_names, every = access_packs(eng, "headline")
+        every[(2, 1, N, 0)] = 1
+        return {**PACK_NAMES, **acc_names}, every, every
     packs_fn = tpcc_packs if eng.cfg.workload == "TPCC" else pps_packs
     names, compact, full = packs_fn(eng)
     return names, compact, full
 
 
 def host_copy(eng, state):
-    """Summary, data and tables of a flushed state, on the host."""
+    """Summary, data, tables and CC arrays of a flushed state, on the
+    host."""
     return (eng.summary(state), state.data.cpu(),
-            {k: v.cpu() for k, v in state.tables.items()})
+            {k: v.cpu() for k, v in state.tables.items()},
+            {k: v.cpu() for k, v in state.db.items()})
 
 
 def windows(timed_run, eng, state, compiled):
@@ -758,6 +881,10 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
 
     c0 = wl.counts()
     fused.reset_launches()
+    # an earlier cell's engine and its graphs form a reference cycle:
+    # collect it, so that it is not freed inside this cell's measurement
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     base_mb = torch.cuda.memory_allocated(dev) / 2**20
     state, eager_ms = windows(timed_run, eng, eng.init_state(), False)
@@ -789,9 +916,11 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
                              f"{diff}")
     if not torch.equal(eager[1], graph[1]):
         raise AssertionError(f"{name}: eager and graph data differ")
-    bad = [k for k in eager[2] if not torch.equal(eager[2][k], graph[2][k])]
+    bad = [k for part in (2, 3) for k in eager[part]
+           if not torch.equal(eager[part][k], graph[part][k])]
     if bad:
-        raise AssertionError(f"{name}: eager and graph tables differ: {bad}")
+        raise AssertionError(f"{name}: eager and graph tables or CC arrays "
+                             f"differ: {bad}")
     bodies_e = {k: c1[k] - c0[k] for k in c0}
     bodies_g = {k: c2[k] - c1[k] for k in c0}
     if bodies_e != bodies_g or bodies_e.get("restock_overflow", 0):
@@ -845,8 +974,10 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
 
     e_med, g_med = float(np.median(eager_ms)), float(np.median(graph_ms))
     say("graph", f"{name}: {GRAPH_TICKS} ticks eager == {GRAPH_TICKS} "
-        f"replayed (summary, data, {len(eager[2])} tables, effect bodies "
-        f"{bodies_g}); txn_cnt={graph[0]['txn_cnt']}; capture "
+        f"replayed (summary, data, {len(eager[2])} tables, CC arrays "
+        f"{sorted(eager[3]) or 'none'}, effect bodies {bodies_g}); txn_cnt="
+        f"{graph[0]['txn_cnt']} abort_rate={graph[0]['abort_rate']:.6f}; "
+        "capture "
         f"{capture_s:.2f} s (warm-up and {len(eng.graphs.graphs)} phase "
         "graphs)")
     say("graph", f"{name}: tick_ms eager median={e_med:.4f} "
@@ -900,7 +1031,7 @@ def main() -> int:
     phase_gpu()
     phase_build(fused)
     rows = phase_kernel(fused, dev)
-    by_pack = phase_headline(cells, Engine, timed_run, fused, dev)
+    _, _, by_pack = phase_headline(cells, Engine, timed_run, fused, dev)
     phase_cpu_equal(cells, "headline", Engine, dev, CPU_TICKS)
     pool, tpcc_by_pack, packs, tpcc_names = phase_tpcc(
         cells, Engine, timed_run, fused, dev)
@@ -919,15 +1050,18 @@ def main() -> int:
     wd_pool = phase_wait_die(cells, Engine, timed_run, fused, dev)
     for name, ticks in WD_CPU_TICKS.items():
         if name == "pps_wait_die":
-            s, _, _ = phase_cpu_equal(cells, name, Engine, dev, ticks,
-                                      pool=wd_pool)
+            s = phase_cpu_equal(cells, name, Engine, dev, ticks,
+                                pool=wd_pool)[0]
         else:
-            s, _, _ = phase_cpu_equal(cells, name, Engine, dev, ticks,
-                                      pool=pool if name == "tpcc" else None,
-                                      cc_alg="WAIT_DIE")
+            s = phase_cpu_equal(cells, name, Engine, dev, ticks,
+                                pool=pool if name == "tpcc" else None,
+                                cc_alg="WAIT_DIE")[0]
         if not s["twopl_wait_cnt"] > 0:
             raise AssertionError(f"no WAIT decision in the {name} WAIT_DIE "
                                  "run")
+
+    phase_timestamp(cells, Engine, timed_run, fused, dev, rows, names,
+                    by_pack, pps_pool)
 
     gpu_line = phase_gpu()
     replayed = {}

@@ -1,8 +1,9 @@
 """CC-algorithm registry (the reference's CC_ALG compile switch).  The
-port carries NO_WAIT and WAIT_DIE so far."""
+port carries NO_WAIT, WAIT_DIE and TIMESTAMP so far."""
 
 from deneva_tpu_torch.cc.base import AccessDecision, CCPlugin
 from deneva_tpu_torch.cc.no_wait import NoWait, WaitDie
+from deneva_tpu_torch.cc.timestamp import Timestamp
 
 REGISTRY: dict[str, CCPlugin] = {}
 
@@ -14,6 +15,7 @@ def register(plugin: CCPlugin) -> CCPlugin:
 
 register(NoWait())
 register(WaitDie())
+register(Timestamp())
 
 
 def get(name: str) -> CCPlugin:

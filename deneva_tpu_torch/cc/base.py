@@ -98,6 +98,11 @@ class CCPlugin:
     #: None leaves the chain's depth to a host read, which a captured tick
     #: cannot make.
     row_writers_per_tick: int | None = None
+    #: the pass count a captured tick takes where the protocol gives no
+    #: bound (``row_writers_per_tick`` None): a chain deeper than it is
+    #: counted on the device, and ``Engine.run_compiled`` raises on it.
+    #: None as well leaves the captured tick a host read, which fails.
+    graph_row_writers_per_tick: int | None = None
 
     def init_db(self, cfg: Config, n_rows: int, B: int, R: int,
                 device="cpu") -> dict:

@@ -26,6 +26,9 @@
   (23,575 catalog rows); R = 21, so a tick arbitrates 172,032 lock lanes.
   Nothing is cut.
 - ``pps_wait_die``: the ``pps`` cell under WAIT_DIE.
+- ``headline_timestamp``: the ``headline`` cell under TIMESTAMP (basic
+  T/O); its per-row ``wts`` and ``rts`` add 134 MB on the card.
+- ``tpcc_timestamp``: the ``tpcc`` cell under TIMESTAMP, nothing cut.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ CELLS = {
                 admit_cap=1024),
 }
 CELLS["pps_wait_die"] = dict(CELLS["pps"], cc_alg="WAIT_DIE")
+CELLS["headline_timestamp"] = dict(CELLS["headline"], cc_alg="TIMESTAMP")
+CELLS["tpcc_timestamp"] = dict(CELLS["tpcc"], cc_alg="TIMESTAMP")
 
 
 def config(name: str, **overrides) -> Config:

@@ -15,9 +15,9 @@ What a captured tick keeps to (a later slice's tick too):
   with ``on_device``: a data-dependent branch runs a body that is exact on
   every tick and counts the reference's choice
   (``WorkloadPlugin.effect_branch``); a data-dependent loop takes a static
-  bound from the plugin
-  (``CCPlugin.row_writers_per_tick``) and counts the ticks that would
-  have gone past it;
+  bound from the plugin (``CCPlugin.row_writers_per_tick``, else
+  ``graph_row_writers_per_tick``) and counts the ticks that would have
+  gone past it, which ``Engine.run_compiled`` reads after the replays;
 - every tensor that outlives the tick is a static buffer or a counter
   made before the capture;
 - every lazy start-up (the kernel's build and load, its occupancy query
@@ -28,7 +28,8 @@ The graphs run on static buffers, an ``EngineState`` made by
 ``Engine.init_state``.  Inside each graph, the tick's new tensors (the
 ``TxnState`` fields, ``pool_cursor``, ``ts_counter``, ``tick``) are
 copied back into those buffers; what the tick updates in place
-(``stats``, ``data``, ``tables``, ``db``) is the buffer itself.  So the
+(``stats``, ``data``, ``tables``, ``db``: TIMESTAMP's ``wts`` and ``rts``
+by in-place scatter-max and rebase) is the buffer itself.  So the
 state a replay returns is those buffers, and the next replay overwrites
 it.  The phase graphs share one memory pool: each one's intermediates die
 inside it, so replays in any order on one stream are safe.

@@ -98,6 +98,30 @@ def request_window(txn: TxnState, active: torch.Tensor, window: int = 1):
             torch.stack(valid, dim=1))
 
 
+def expand_window(txn: TxnState, vals: torch.Tensor, fill=0) -> torch.Tensor:
+    """Inverse of ``request_window``: place (B, W) per-request values into
+    (B, R) entry order (the value of request j at lane cursor+j, ``fill``
+    elsewhere) with elementwise selects, no scatter."""
+    B, R = txn.keys.shape
+    ridx = torch.arange(R, dtype=I32, device=txn.keys.device)[None, :]
+    cur = txn.cursor[:, None]
+    out = torch.full((B, R), fill, dtype=vals.dtype, device=vals.device)
+    for j in range(vals.shape[1]):
+        out = torch.where(ridx == cur + j, vals[:, j:j + 1], out)
+    return out
+
+
+def contract_window(txn: TxnState, mask: torch.Tensor, W: int) -> torch.Tensor:
+    """Inverse of ``expand_window`` for boolean masks: a (B, R) entry-order
+    mask to (B, W) request-window order (lane j holds the value at access
+    cursor+j)."""
+    B, R = txn.keys.shape
+    ridx = torch.arange(R, dtype=I32, device=txn.keys.device)[None, :]
+    cur = txn.cursor[:, None]
+    return torch.stack([(mask & (ridx == cur + j)).any(dim=1)
+                        for j in range(W)], dim=1)
+
+
 def make_entries(txn: TxnState, active: torch.Tensor,
                  read_locks_held: bool = True, window: int = 1) -> Entries:
     """Build the live entry view for lock-style arbitration.

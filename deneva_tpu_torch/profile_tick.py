@@ -5,6 +5,7 @@
     python -m deneva_tpu_torch.profile_tick --cell pps --ticks 50
     python -m deneva_tpu_torch.profile_tick --cell pps_wait_die --ticks 50
     python -m deneva_tpu_torch.profile_tick --cell pps --compiled
+    python -m deneva_tpu_torch.profile_tick --cell tpcc_timestamp --compiled
 
 Runs the cell's warm-up, then times ``--ticks`` ticks with CUDA events
 (no profiler attached), counting the fused kernel's launches by pack,

@@ -193,8 +193,9 @@ class WorkloadPlugin:
         within the tick by commit timestamp ``cts``; ``key_local`` are
         shard-local catalog rows of shard ``part``.  ``chain_passes`` is
         the CC plugin's bound on committing writers of one row per tick
-        (``CCPlugin.row_writers_per_tick``); None reads an effect chain's
-        depth on the host.  ``on_device`` makes the effect branch on the
+        (``CCPlugin.row_writers_per_tick``, or in a captured tick
+        ``graph_row_writers_per_tick``); None reads an effect chain's depth
+        on the host.  ``on_device`` makes the effect branch on the
         device (``effect_branch``)."""
         return tables
 

@@ -4,8 +4,11 @@ loop.  It is held bit-equal to the JAX package's ``run_compiled`` (one
 ``fori_loop``) and to the port's eager ``run`` on one shared pool:
 ``summary()``, the ``[summary]`` line (less ``mem_util``/``cpu_util``),
 ``data``, every table and the effect bodies taken.  A guard makes every
-host read of a tensor raise while ``run_compiled`` ticks, so a host read
-brought back into the tick fails here, without a card.  Every comparison
+host read of a tensor raise inside the ticks of ``run_compiled``, so a
+host read brought back into the tick fails here, without a card; the one
+read ``run_compiled`` makes after its ticks (the restock-overflow
+counter) is outside them.  Under TIMESTAMP, a TPC-C tick whose restock
+chain outruns the plugin's graph bound makes ``run_compiled`` raise.  Every comparison
 is exact (integers).  The CUDA-graph twin of these checks is in
 ``tests/test_torch_cuda.py``."""
 
@@ -91,7 +94,7 @@ def _run(run, chunks):
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
-@pytest.mark.parametrize("cc", ["NO_WAIT", "WAIT_DIE"])
+@pytest.mark.parametrize("cc", ["NO_WAIT", "WAIT_DIE", "TIMESTAMP"])
 @pytest.mark.parametrize("workload", sorted(WORKLOADS))
 def test_run_compiled_matches_reference_and_run(workload, cc, fused):
     # the reference in one call (one compile of its fori_loop), the port's
@@ -108,8 +111,13 @@ def test_run_compiled_matches_reference_and_run(workload, cc, fused):
     assert int(ts.tick) == ts.host_tick == sum(CHUNKS)
     assert tc.workload.counts() == te.workload.counts()
     assert tc.workload.counts().get("restock_overflow", 0) == 0
-    if cc == "WAIT_DIE" and workload != "tpcc":
+    if cc != "NO_WAIT" and workload != "tpcc":
         assert s["twopl_wait_cnt"] > 0
+    if cc == "TIMESTAMP":
+        for k in ("wts", "rts"):
+            np.testing.assert_array_equal(np.asarray(js.db[k]),
+                                          ts.db[k].numpy(), err_msg=k)
+            assert torch.equal(es.db[k], ts.db[k]), k
 
 
 def test_warmup_boundary_inside_a_call():
@@ -159,6 +167,18 @@ def _no_host_reads(monkeypatch):
         yield
 
 
+def _guard_ticks(eng, monkeypatch):
+    """Make every host read of a tensor raise inside each tick of `eng`
+    (eager and compiled), and nowhere else."""
+    tick = eng.tick
+
+    def guarded(state, compiled=False):
+        with _no_host_reads(monkeypatch):
+            return tick(state, compiled)
+
+    monkeypatch.setattr(eng, "tick", guarded)
+
+
 #: configs whose effect step takes the device branch (B*R > K)
 GUARD_CFGS = {
     "ycsb": _kw("ycsb", "WAIT_DIE", True),
@@ -173,15 +193,29 @@ GUARD_CFGS = {
 def test_run_compiled_makes_no_host_read(workload, monkeypatch):
     cfg = TConfig(**GUARD_CFGS[workload])
     eng = TEngine(cfg, device="cpu")
-    state = eng.init_state()
-    with _no_host_reads(monkeypatch):
-        state = eng.run_compiled(8, state)
+    _guard_ticks(eng, monkeypatch)
+    state = eng.run_compiled(8, eng.init_state())
     assert eng.summary(state)["txn_cnt"] > 0
     if workload != "ycsb":
         # the guard bites: the eager tick reads its branch on the host
         assert eng.workload.branch_ticks["compact"] == 8
-        with _no_host_reads(monkeypatch), \
-                pytest.raises(AssertionError, match="host read"):
+        with pytest.raises(AssertionError, match="host read"):
+            eng.run(1)
+
+
+@pytest.mark.parametrize("workload", sorted(GUARD_CFGS))
+def test_timestamp_run_compiled_makes_no_host_read(workload, monkeypatch):
+    # TIMESTAMP's compiled tick: in-place wts/rts, the restock chain at the
+    # plugin's graph bound; the eager TPC-C tick reads the chain's depth
+    cfg = TConfig(**dict(GUARD_CFGS[workload], cc_alg="TIMESTAMP"))
+    eng = TEngine(cfg, device="cpu")
+    _guard_ticks(eng, monkeypatch)
+    state = eng.run_compiled(8, eng.init_state())
+    s = eng.summary(state)
+    assert s["txn_cnt"] > 0 and s["total_txn_abort_cnt"] > 0
+    assert eng.workload.counts().get("restock_overflow", 0) == 0
+    if workload == "tpcc":
+        with pytest.raises(AssertionError, match="host read"):
             eng.run(1)
 
 
@@ -197,9 +231,35 @@ def test_unbounded_effect_chain_reads_the_host(monkeypatch):
     eng = TEngine(TConfig(**GUARD_CFGS["tpcc"]), device="cpu")
     eng._tick_fns[True] = make_tick(eng.cfg, Unbounded(), eng.pool_dev,
                                     eng.workload, on_device=True)
-    with _no_host_reads(monkeypatch), \
-            pytest.raises(AssertionError, match="host read"):
+    _guard_ticks(eng, monkeypatch)
+    with pytest.raises(AssertionError, match="host read"):
         eng.run_compiled(2)
+
+
+#: the TPC-C cell of tests/test_parity.py under TIMESTAMP: several txns
+#: commit to one STOCK row in a tick (tests/test_torch_timestamp.py)
+DEEP_TPCC = dict(workload="TPCC", cc_alg="TIMESTAMP", batch_size=64,
+                 num_wh=4, cust_per_dist=1000, max_items=128,
+                 query_pool_size=1 << 10, warmup_ticks=0, synth_table_size=8)
+
+
+@pytest.mark.parametrize("bound", [1, 2])
+def test_restock_chain_past_the_graph_bound_raises(bound, monkeypatch):
+    # a captured tick takes the plugin's static restock pass count; with it
+    # below the depth that occurs, run_compiled raises rather than returning
+    # tables that are not the reference's; eagerly the depth is read and
+    # exact
+    from deneva_tpu_torch.cc.timestamp import Timestamp
+    monkeypatch.setattr(Timestamp, "graph_row_writers_per_tick", bound)
+    cfg = TConfig(**DEEP_TPCC)
+    pool = wl_registry.get(cfg).gen_pool(cfg)
+    eager = TEngine(cfg, pool=pool, device="cpu")
+    eager.run(50)
+    assert max(eager.workload.chain_depths) > bound
+    tc = TEngine(cfg, pool=pool, device="cpu")
+    with pytest.raises(RuntimeError, match="restock chain deeper"):
+        tc.run_compiled(50)
+    assert tc.workload.counts()["restock_overflow"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -309,6 +309,43 @@ def test_wait_die_engine_cuda_matches_cpu(dev, workload):
         assert torch.equal(sg.tables[k].cpu(), sc.tables[k]), k
 
 
+@pytest.mark.parametrize("workload,twr", [
+    ("ycsb", False), ("ycsb", True), ("tpcc", False), ("pps", False)])
+def test_timestamp_engine_cuda_matches_cpu(dev, workload, twr):
+    # TIMESTAMP: the (key, ts) pack on the kernel, wts/rts raised by
+    # in-place scatter-max (order-free, so the atomics give the CPU's
+    # arrays), the TPC-C restock chain's depth read on the host
+    cfg = Config(cc_alg="TIMESTAMP", fused_arbitrate=True, ts_twr=twr,
+                 **WAIT_DIE_CFGS[workload])
+    gpu = Engine(cfg, device=dev)
+    cpu = Engine(cfg, pool=gpu.pool, device="cpu")
+    sg, sc = gpu.run(60), cpu.run(60)
+    s = gpu.summary(sg)
+    assert s == cpu.summary(sc)
+    assert s["txn_cnt"] > 0 and s["total_txn_abort_cnt"] > 0
+    assert torch.equal(sg.data.cpu(), sc.data)
+    for k in sc.tables:
+        assert torch.equal(sg.tables[k].cpu(), sc.tables[k]), k
+    for k in ("wts", "rts"):
+        assert torch.equal(sg.db[k].cpu(), sc.db[k]), k
+    if workload == "tpcc":
+        assert gpu.workload.chain_depths == cpu.workload.chain_depths
+
+
+def test_timestamp_pack_matches_plain_in_one_launch(dev):
+    # the T/O decision pack at the tpcc cell's width: (key, ts, is_write,
+    # held, req, w_abort, lane) by 2 keys, dead lanes keyed INT32_MAX
+    rng = np.random.default_rng(11)
+    n = 270_336
+    live = rng.random(n) < 0.3
+    cols = [np.where(live, rng.integers(0, 1 << 24, n), 2**31 - 1),
+            np.repeat(rng.integers(1, 1 << 20, n // 33), 33)]
+    cols += [rng.random(n) < 0.5 for _ in range(4)] + [np.arange(n)]
+    cols = [torch.from_numpy(c.astype(np.int32)).to(dev) for c in cols]
+    _check(cols, 2)
+    _assert_one_device_launch(lambda: fused.fused_sort_scan(cols, 2))
+
+
 def test_ordered_index_cuda_matches_cpu(dev):
     rng = np.random.default_rng(3)
     keys = np.unique(rng.integers(0, 10_000, 500))
@@ -342,12 +379,14 @@ def _assert_same_run(eng, a, b):
     assert torch.equal(a.data, b.data)
     for k in a.tables:
         assert torch.equal(a.tables[k], b.tables[k]), k
+    for k in a.db:
+        assert torch.equal(a.db[k], b.db[k]), k
     for f in a.txn._fields:
         assert torch.equal(getattr(a.txn, f), getattr(b.txn, f)), f
     assert int(a.tick) == int(b.tick) == a.host_tick == b.host_tick
 
 
-@pytest.mark.parametrize("cc", ["NO_WAIT", "WAIT_DIE"])
+@pytest.mark.parametrize("cc", ["NO_WAIT", "WAIT_DIE", "TIMESTAMP"])
 @pytest.mark.parametrize("workload", sorted(GRAPH_CFGS))
 def test_graph_replay_matches_eager(dev, workload, cc):
     # 40 ticks: eager, then replayed from the initial state in two calls

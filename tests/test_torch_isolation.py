@@ -32,7 +32,8 @@ MODULES = (
     "deneva_tpu_torch.ops.fused", "deneva_tpu_torch.ops.cuda_build",
     "deneva_tpu_torch.cc", "deneva_tpu_torch.cc.base",
     "deneva_tpu_torch.cc.compact", "deneva_tpu_torch.cc.twopl",
-    "deneva_tpu_torch.cc.no_wait", "deneva_tpu_torch.profile_tick",
+    "deneva_tpu_torch.cc.no_wait", "deneva_tpu_torch.cc.timestamp",
+    "deneva_tpu_torch.profile_tick",
     "chip_smoke",
 )
 
@@ -87,7 +88,9 @@ def test_cpu_engine_runs():
 
 
 OUTSIDE = {
-    "timestamp": dict(cc_alg="TIMESTAMP"),
+    "mvcc": dict(cc_alg="MVCC"),
+    # TIMESTAMP's sub-ticked path (twopl.ts_groups) is not ported
+    "timestamp_sub_ticks": dict(cc_alg="TIMESTAMP", sub_ticks=2),
     "occ": dict(cc_alg="OCC"),
     # TPC-C and PPS are ported on one shard only
     "pps": dict(workload="PPS", part_cnt=2),
