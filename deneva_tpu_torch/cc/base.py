@@ -93,16 +93,6 @@ class CCPlugin:
     new_ts_on_restart: bool = False
     #: registered reasons this plugin's access decisions can carry
     access_abort_reasons: tuple[str, ...] = ()
-    #: the most txns that can commit a write to one row in one tick: the
-    #: static pass count of a workload's effect chain (TPC-C's restock).
-    #: None leaves the chain's depth to a host read, which a captured tick
-    #: cannot make.
-    row_writers_per_tick: int | None = None
-    #: the pass count a captured tick takes where the protocol gives no
-    #: bound (``row_writers_per_tick`` None): a chain deeper than it is
-    #: counted on the device, and ``Engine.run_compiled`` raises on it.
-    #: None as well leaves the captured tick a host read, which fails.
-    graph_row_writers_per_tick: int | None = None
 
     def init_db(self, cfg: Config, n_rows: int, B: int, R: int,
                 device="cpu") -> dict:

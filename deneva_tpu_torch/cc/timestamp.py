@@ -5,9 +5,10 @@
 Per-row state is two int32 arrays, ``wts`` and ``rts``, only ever raised
 by scatter-max: monotone, so no update needs an undo, and max is
 order-free, so the scatter is exact in any order.  Both are updated in
-place (``scatter_reduce_`` "amax"), and so is the timestamp rebase: a
-captured tick then returns the arrays themselves and its graph copies
-nothing back (``engine/graph.py``).
+place (``scatter_reduce_`` "amax"), and so is the timestamp rebase
+(``ops/rebase.py``: on the card a kernel that returns at once on a tick
+that does not rebase): a captured tick then returns the arrays themselves
+and its graph copies nothing back (``engine/graph.py``).
 
 Decision rules (per request, processed in ts order within the tick):
 
@@ -21,10 +22,8 @@ Decision rules (per request, processed in ts order within the tick):
 
 A pending prewrite is a granted write of a live txn, or a write granted
 earlier in this tick.  Writers never block one another, so several txns
-can commit writes to one row in one tick: the plugin gives no bound on
-committing writers per row (``row_writers_per_tick`` is None), and a
-captured tick takes ``graph_row_writers_per_tick`` instead (see
-``CCPlugin``).
+can commit writes to one row in one tick (TPC-C's restock chain takes any
+depth, ``workloads/tpcc.py``).
 
 This slice carries the one-round path.  ``sub_ticks > 1``, the depgraph
 blocker plane and abort attribution raise (``check_slice`` refuses them
@@ -42,6 +41,7 @@ from deneva_tpu_torch.engine.state import (
     NULL_KEY, TxnState, contract_window, expand_window, make_entries,
     request_window,
 )
+from deneva_tpu_torch.ops import rebase
 from deneva_tpu_torch.ops import segment as seg
 
 I32 = torch.int32
@@ -84,10 +84,6 @@ class Timestamp(CCPlugin):
     # hot-key escalation gate of the adaptive controller: a stalled T/O
     # writer retries with its ts intact
     esc_gate_ok = True
-    #: the restock pass count of a captured TPC-C tick: twice the deepest
-    #: chain chip_smoke.py measured on the tpcc_timestamp cell (3, over
-    #: 300 ticks; PERF.md); a deeper chain makes run_compiled raise
-    graph_row_writers_per_tick = 6
 
     def init_db(self, cfg: Config, n_rows: int, B: int, R: int,
                 device="cpu") -> dict:
@@ -96,9 +92,9 @@ class Timestamp(CCPlugin):
                 "rts": torch.zeros(n_rows, dtype=I32, device=device)}
 
     def on_ts_rebase(self, cfg: Config, db: dict, shift) -> dict:
-        """``max(x - shift, 0)`` on both arrays, in place."""
-        for k in ("wts", "rts"):
-            db[k].sub_(shift).clamp_(min=0)
+        """``max(x - shift, 0)`` on both arrays, in place (``shift`` an
+        int64 scalar tensor, 0 on a tick that does not rebase)."""
+        rebase.rebase_(db["wts"], db["rts"], shift)
         return db
 
     def access(self, cfg: Config, db: dict, txn: TxnState, active):

@@ -14,10 +14,8 @@ What a captured tick keeps to (a later slice's tick too):
   ``int()`` or element store from the host.  It is the engine's tick made
   with ``on_device``: a data-dependent branch runs a body that is exact on
   every tick and counts the reference's choice
-  (``WorkloadPlugin.effect_branch``); a data-dependent loop takes a static
-  bound from the plugin (``CCPlugin.row_writers_per_tick``, else
-  ``graph_row_writers_per_tick``) and counts the ticks that would have
-  gone past it, which ``Engine.run_compiled`` reads after the replays;
+  (``WorkloadPlugin.effect_branch``), and a data-dependent loop is
+  rewritten without one (TPC-C's restock chain in closed form);
 - every tensor that outlives the tick is a static buffer or a counter
   made before the capture;
 - every lazy start-up (the kernel's build and load, its occupancy query

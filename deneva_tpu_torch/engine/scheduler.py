@@ -13,8 +13,8 @@ once.  One tick:
 This is the port of ``deneva_tpu/engine/scheduler.py`` for one slice:
 YCSB, TPC-C or PPS under NO_WAIT, WAIT_DIE or TIMESTAMP, single shard,
 SERIALIZABLE, NORMAL mode, commit before access, with ``fused_arbitrate``
-on or off and every other opt-in flag off.  ``check_slice`` refuses anything else; its
-single-shard rule also covers the JAX engine's ``part_cnt == 1``
+on or off and every other opt-in flag off.  ``check_slice`` refuses
+anything else; its single-shard rule also covers the JAX engine's ``part_cnt == 1``
 assertion for a workload with commit effects.  Every observatory hook of
 the reference tick is a no-op at those flags and is left out.
 
@@ -24,15 +24,11 @@ says so).  The tick count and the warm-up gate live on the device, as in
 the reference; the engine never reads a device value on the host.
 ``Engine.run`` launches every op of every tick from Python.  There, a
 YCSB tick syncs the device nowhere, and TPC-C's and PPS's commit effects
-read one scalar per tick on the host (their compact/full choice); under a
-protocol that gives no bound on committing writers per row (TIMESTAMP),
-TPC-C's restock chain reads its depth on the host too.
+read one scalar per tick on the host (their compact/full choice).
 ``Engine.run_compiled`` runs the tick made with ``on_device``, which
-reads nothing on the host (the full-width effect body on every tick, and
-the plugin's static restock bound): on CUDA as a CUDA graph per flush
-phase, replayed with no host read (``engine/graph.py``); on the CPU in a
-host loop.  After the ticks it reads the restock-overflow counter once and
-raises if a chain outran the bound.
+reads nothing on the host (the full-width effect body on every tick):
+on CUDA as a CUDA graph per flush phase, replayed with no host read
+(``engine/graph.py``); on the CPU in a host loop.
 """
 
 from __future__ import annotations
@@ -261,14 +257,10 @@ def flush_write_ring(data: torch.Tensor, stats: dict) -> None:
 def make_tick(cfg: Config, plugin, pool_dev: dict, workload,
               on_device: bool = False):
     """The tick function of the slice; ``on_device`` makes the workload's
-    effect branch on the device and takes the plugin's static bound on an
-    effect chain, so the tick reads nothing on the host."""
+    effect branch on the device, so the tick reads nothing on the host."""
     check_slice(cfg)
     Q = pool_dev["kw"].shape[0]
     redraw = plugin.new_ts_on_restart or cfg.restart_new_ts
-    chain_passes = plugin.row_writers_per_tick
-    if on_device and chain_passes is None:
-        chain_passes = plugin.graph_row_writers_per_tick
     REBASE_AT, REBASE_BY = 3 << 29, 1 << 30
 
     def _penalty(restarts):
@@ -361,7 +353,7 @@ def make_tick(cfg: Config, plugin, pool_dev: dict, workload,
                 cfg, tables, txn.keys.reshape(-1), 0,
                 {k: v.reshape(-1) for k, v in flds.items()},
                 txn.ts[:, None].expand(B, R).reshape(-1), nmask.reshape(-1),
-                chain_passes=chain_passes, on_device=on_device)
+                on_device=on_device)
 
         stats = bump(stats, "txn_cnt", commit.sum(dtype=I32), measuring)
         stats = bump(stats, "write_cnt", wmask.sum(dtype=I32), measuring)
@@ -517,38 +509,10 @@ class Engine:
         returned on CUDA is those buffers: it is valid until the next
         compiled call of this engine, which overwrites it in place
         (``clone`` what must outlive that).  A capture that fails raises.
-        On the CPU the same tick runs in a host loop.  After the ticks,
-        one host read of the restock-overflow counter: if an effect chain
-        outran the plugin's static bound, the tables are not the
-        reference's, and this raises instead of returning them."""
+        On the CPU the same tick runs in a host loop."""
         if state is None:
             state = self.init_state()
-        mark = self.chain_mark()
-        state = self.advance(n_ticks, state, compiled=True)
-        self.check_chain_bound(mark)
-        return self._flush_body(state)
-
-    def chain_mark(self):
-        """The restock-overflow counter now, as a device copy (no host
-        read); None for a workload without an effect chain."""
-        c = self.workload.counters.get("restock_overflow")
-        return None if c is None else c.clone()
-
-    def check_chain_bound(self, mark) -> None:
-        """Raise if compiled ticks since ``mark`` (``chain_mark``) had an
-        effect chain deeper than the static pass count they took: one host
-        read, outside the tick."""
-        if mark is None:
-            return
-        over = int(self.workload.counters["restock_overflow"] - mark)
-        if over:
-            bound = (self.plugin.row_writers_per_tick
-                     or self.plugin.graph_row_writers_per_tick)
-            raise RuntimeError(
-                f"{over} compiled tick(s) had a restock chain deeper than "
-                f"the {bound} passes {self.plugin.name} gives a captured "
-                "tick (graph_row_writers_per_tick): their tables are not "
-                "the reference's; run these ticks eagerly (Engine.run)")
+        return self._flush_body(self.advance(n_ticks, state, compiled=True))
 
     def advance(self, n_ticks: int, state: EngineState,
                 compiled: bool = False) -> EngineState:
@@ -608,12 +572,9 @@ def timed_run(engine: Engine, n_ticks: int, state: EngineState,
     CUDA the time comes from CUDA events around the ticks; on the CPU from
     the host clock.  ``compiled`` runs them as ``run_compiled`` does (on
     CUDA, graph replays; the graphs are captured, and the state copied in,
-    before the clock starts, and the restock bound is checked after it
-    stops, as ``run_compiled`` does)."""
-    mark = None
+    before the clock starts)."""
     if compiled:
         state = engine.advance(0, state, compiled=True)
-        mark = engine.chain_mark()
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
         t0 = torch.cuda.Event(enable_timing=True)
@@ -627,5 +588,4 @@ def timed_run(engine: Engine, n_ticks: int, state: EngineState,
         h0 = time.perf_counter()
         state = engine.advance(n_ticks, state, compiled)
         per_tick = (time.perf_counter() - h0) / max(n_ticks, 1)
-    engine.check_chain_bound(mark)
     return engine._flush_body(state), per_tick

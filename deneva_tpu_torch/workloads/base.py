@@ -187,16 +187,11 @@ class WorkloadPlugin:
 
     def apply_commit_entries(self, cfg, tables: dict, key_local, part,
                              fields: dict, cts, live,
-                             chain_passes=None,
                              on_device: bool = False) -> dict:
         """Apply the effects of the (n,) entries where ``live``, ordered
         within the tick by commit timestamp ``cts``; ``key_local`` are
-        shard-local catalog rows of shard ``part``.  ``chain_passes`` is
-        the CC plugin's bound on committing writers of one row per tick
-        (``CCPlugin.row_writers_per_tick``, or in a captured tick
-        ``graph_row_writers_per_tick``); None reads an effect chain's depth
-        on the host.  ``on_device`` makes the effect branch on the
-        device (``effect_branch``)."""
+        shard-local catalog rows of shard ``part``.  ``on_device`` makes
+        the effect branch on the device (``effect_branch``)."""
         return tables
 
     def user_abort(self, cfg, txn, finishing: torch.Tensor) -> torch.Tensor:

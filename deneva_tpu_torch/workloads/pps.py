@@ -264,7 +264,6 @@ class PPSWorkload(WorkloadPlugin):
 
     def apply_commit_entries(self, cfg: Config, tables: dict, key_local,
                              part, fields: dict, cts, live,
-                             chain_passes=None,
                              on_device: bool = False) -> dict:
         """Apply commit effects to ``tables`` in place and return it.
 
@@ -273,8 +272,7 @@ class PPSWorkload(WorkloadPlugin):
         ``(cts, lane)``: the same order), and the body runs on it.  A tick
         with more than K effect entries runs the body at full width
         (``effect_branch`` decides, see the module docstring), and every
-        tick does with ``on_device``.  PPS has no effect chain, so
-        ``chain_passes`` is unused."""
+        tick does with ``on_device``."""
         n = key_local.shape[0]
         role_f, earg = fields["role"], fields["earg"]
         eff = live & ((role_f & 7) != ROLE_NONE)

@@ -4,11 +4,9 @@ loop.  It is held bit-equal to the JAX package's ``run_compiled`` (one
 ``fori_loop``) and to the port's eager ``run`` on one shared pool:
 ``summary()``, the ``[summary]`` line (less ``mem_util``/``cpu_util``),
 ``data``, every table and the effect bodies taken.  A guard makes every
-host read of a tensor raise inside the ticks of ``run_compiled``, so a
-host read brought back into the tick fails here, without a card; the one
-read ``run_compiled`` makes after its ticks (the restock-overflow
-counter) is outside them.  Under TIMESTAMP, a TPC-C tick whose restock
-chain outruns the plugin's graph bound makes ``run_compiled`` raise.  Every comparison
+host read of a tensor raise while ``run_compiled`` ticks, so a host read
+brought back into the tick fails here, without a card; under TIMESTAMP
+that holds for TPC-C restock chains of any depth.  Every comparison
 is exact (integers).  The CUDA-graph twin of these checks is in
 ``tests/test_torch_cuda.py``."""
 
@@ -27,6 +25,7 @@ from deneva_tpu_torch import workloads as wl_registry  # noqa: E402
 from deneva_tpu_torch.config import Config as TConfig  # noqa: E402
 from deneva_tpu_torch.engine.scheduler import Engine as TEngine  # noqa: E402
 from deneva_tpu_torch.workloads import base, pps, tpcc  # noqa: E402
+from tests import test_torch_timestamp as t_to  # noqa: E402
 
 POOL_FIELDS = ("keys", "is_write", "n_req", "home_part", "txn_type", "args",
                "aux")
@@ -110,7 +109,6 @@ def test_run_compiled_matches_reference_and_run(workload, cc, fused):
     assert s["txn_cnt"] > 0 and s["total_txn_abort_cnt"] > 0
     assert int(ts.tick) == ts.host_tick == sum(CHUNKS)
     assert tc.workload.counts() == te.workload.counts()
-    assert tc.workload.counts().get("restock_overflow", 0) == 0
     if cc != "NO_WAIT" and workload != "tpcc":
         assert s["twopl_wait_cnt"] > 0
     if cc == "TIMESTAMP":
@@ -167,18 +165,6 @@ def _no_host_reads(monkeypatch):
         yield
 
 
-def _guard_ticks(eng, monkeypatch):
-    """Make every host read of a tensor raise inside each tick of `eng`
-    (eager and compiled), and nowhere else."""
-    tick = eng.tick
-
-    def guarded(state, compiled=False):
-        with _no_host_reads(monkeypatch):
-            return tick(state, compiled)
-
-    monkeypatch.setattr(eng, "tick", guarded)
-
-
 #: configs whose effect step takes the device branch (B*R > K)
 GUARD_CFGS = {
     "ycsb": _kw("ycsb", "WAIT_DIE", True),
@@ -193,73 +179,68 @@ GUARD_CFGS = {
 def test_run_compiled_makes_no_host_read(workload, monkeypatch):
     cfg = TConfig(**GUARD_CFGS[workload])
     eng = TEngine(cfg, device="cpu")
-    _guard_ticks(eng, monkeypatch)
-    state = eng.run_compiled(8, eng.init_state())
+    state = eng.init_state()
+    with _no_host_reads(monkeypatch):
+        state = eng.run_compiled(8, state)
     assert eng.summary(state)["txn_cnt"] > 0
     if workload != "ycsb":
         # the guard bites: the eager tick reads its branch on the host
         assert eng.workload.branch_ticks["compact"] == 8
-        with pytest.raises(AssertionError, match="host read"):
+        with _no_host_reads(monkeypatch), \
+                pytest.raises(AssertionError, match="host read"):
             eng.run(1)
 
 
 @pytest.mark.parametrize("workload", sorted(GUARD_CFGS))
 def test_timestamp_run_compiled_makes_no_host_read(workload, monkeypatch):
-    # TIMESTAMP's compiled tick: in-place wts/rts, the restock chain at the
-    # plugin's graph bound; the eager TPC-C tick reads the chain's depth
+    # TIMESTAMP's compiled tick: in-place wts/rts, the restock chain in
+    # closed form; the eager TPC-C tick reads its effect branch only
     cfg = TConfig(**dict(GUARD_CFGS[workload], cc_alg="TIMESTAMP"))
     eng = TEngine(cfg, device="cpu")
-    _guard_ticks(eng, monkeypatch)
-    state = eng.run_compiled(8, eng.init_state())
+    state = eng.init_state()
+    with _no_host_reads(monkeypatch):
+        state = eng.run_compiled(8, state)
     s = eng.summary(state)
     assert s["txn_cnt"] > 0 and s["total_txn_abort_cnt"] > 0
-    assert eng.workload.counts().get("restock_overflow", 0) == 0
     if workload == "tpcc":
-        with pytest.raises(AssertionError, match="host read"):
+        with _no_host_reads(monkeypatch), \
+                pytest.raises(AssertionError, match="host read"):
             eng.run(1)
 
 
 def test_unbounded_effect_chain_reads_the_host(monkeypatch):
-    # a plugin without row_writers_per_tick leaves the restock depth to a
-    # host read, which run_compiled refuses (on the card: capture fails)
-    from deneva_tpu_torch.cc.no_wait import NoWait
-    from deneva_tpu_torch.engine.scheduler import make_tick
-
-    class Unbounded(NoWait):
-        row_writers_per_tick = None
-
-    eng = TEngine(TConfig(**GUARD_CFGS["tpcc"]), device="cpu")
-    eng._tick_fns[True] = make_tick(eng.cfg, Unbounded(), eng.pool_dev,
-                                    eng.workload, on_device=True)
-    _guard_ticks(eng, monkeypatch)
-    with pytest.raises(AssertionError, match="host read"):
-        eng.run_compiled(2)
-
-
-#: the TPC-C cell of tests/test_parity.py under TIMESTAMP: several txns
-#: commit to one STOCK row in a tick (tests/test_torch_timestamp.py)
-DEEP_TPCC = dict(workload="TPCC", cc_alg="TIMESTAMP", batch_size=64,
-                 num_wh=4, cust_per_dist=1000, max_items=128,
-                 query_pool_size=1 << 10, warmup_ticks=0, synth_table_size=8)
-
-
-@pytest.mark.parametrize("bound", [1, 2])
-def test_restock_chain_past_the_graph_bound_raises(bound, monkeypatch):
-    # a captured tick takes the plugin's static restock pass count; with it
-    # below the depth that occurs, run_compiled raises rather than returning
-    # tables that are not the reference's; eagerly the depth is read and
-    # exact
-    from deneva_tpu_torch.cc.timestamp import Timestamp
-    monkeypatch.setattr(Timestamp, "graph_row_writers_per_tick", bound)
-    cfg = TConfig(**DEEP_TPCC)
+    # TIMESTAMP bounds no committers of one STOCK row per tick, and on this
+    # config the restock chain runs deeper than 1.  Only the eager tick
+    # reads the host, for its effect branch; the chain's closed form reads
+    # nothing, so run_compiled ticks under the guard and equals the eager
+    # run
+    cfg = TConfig(**t_to.DEEP_TPCC)
     pool = wl_registry.get(cfg).gen_pool(cfg)
-    eager = TEngine(cfg, pool=pool, device="cpu")
-    eager.run(50)
-    assert max(eager.workload.chain_depths) > bound
+    te = TEngine(cfg, pool=pool, device="cpu")
+    with t_to.restock_depths(monkeypatch) as depths:
+        es = te.run(30)
+    assert max(depths) > 1, depths
     tc = TEngine(cfg, pool=pool, device="cpu")
-    with pytest.raises(RuntimeError, match="restock chain deeper"):
-        tc.run_compiled(50)
-    assert tc.workload.counts()["restock_overflow"] > 0
+    state = tc.init_state()
+    with _no_host_reads(monkeypatch):
+        state = tc.run_compiled(30, state)
+    _assert_same(te, es, tc, state)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_deep_restock_chains_run_compiled_matches_reference(fused):
+    # restock chains deeper than one committer per STOCK row (the TPC-C
+    # cell of tests/test_parity.py under TIMESTAMP): run_compiled gives the
+    # reference's tables, as the eager tick does
+    je, tc, _ = _engines(dict(t_to.DEEP_TPCC, fused_arbitrate=fused))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")    # the JAX gate's width fallback
+        js = je.run_compiled(40)
+    ts = _run(tc.run_compiled, (15, 25))
+    _assert_same(je, js, tc, ts)
+    for k in ("wts", "rts"):
+        np.testing.assert_array_equal(np.asarray(js.db[k]),
+                                      ts.db[k].numpy(), err_msg=k)
 
 
 # ---------------------------------------------------------------------------
@@ -295,21 +276,20 @@ def _entries(cat, roles_tables, n, seed):
             as_t(rng.permutation(n) + 1))
 
 
-@pytest.mark.parametrize("passes", [None, 1])
-def test_tpcc_body_on_an_empty_mask(passes):
+@pytest.mark.parametrize("n", [1, 3000])
+def test_tpcc_body_on_an_empty_mask(n):
     cfg = TConfig(**_kw("tpcc", "NO_WAIT", False))
     wl = tpcc.TPCCWorkload()
     tables = wl.init_tables(cfg, 0)
     want = {k: v.clone() for k, v in tables.items()}
     key, role, earg, earg2, cts = _entries(
         tpcc.catalog(cfg), {1: "WAREHOUSE", 2: "DISTRICT", 3: "CUSTOMER",
-                            4: "DISTRICT", 5: "STOCK"}, 3000, 1)
-    none = torch.zeros(3000, dtype=torch.bool)
+                            4: "DISTRICT", 5: "STOCK"}, n, 1)
+    none = torch.zeros(n, dtype=torch.bool)
     wl._apply_entries_body(cfg, tables, key, 0, role, earg, earg2, cts,
-                           none, passes)
+                           none)
     for k in want:
         assert torch.equal(tables[k], want[k]), k   # cursors included
-    assert wl.counts()["restock_overflow"] == 0
 
 
 def test_pps_body_on_an_empty_mask():
@@ -323,24 +303,6 @@ def test_pps_body_on_an_empty_mask():
                            torch.zeros(2000, dtype=torch.bool))
     for k in want:
         assert torch.equal(tables[k], want[k]), k
-
-
-def test_restock_overflow_counts_chains_past_the_bound():
-    # two entries on one stock row in one tick: deeper than a bound of 1,
-    # which the counter records (under 2PL the engine never gives this)
-    cfg = TConfig(**_kw("tpcc", "NO_WAIT", False))
-    base_row = tpcc.catalog(cfg).tables["STOCK"].base
-    key = torch.tensor([base_row + 3, base_row + 3, base_row + 5],
-                       dtype=torch.int32)
-    role = torch.full((3,), tpcc.ROLE_S_NO, dtype=torch.int32)
-    zero = torch.zeros(3, dtype=torch.int32)
-    cts = torch.tensor([2, 1, 3], dtype=torch.int32)
-    live = torch.ones(3, dtype=torch.bool)
-    for passes, want in ((1, 1), (2, 0)):
-        wl = tpcc.TPCCWorkload()
-        wl._apply_entries_body(cfg, wl.init_tables(cfg, 0), key, 0, role,
-                               zero, zero, cts, live, passes)
-        assert wl.counts()["restock_overflow"] == want
 
 
 def test_effect_branch_on_device_masks():

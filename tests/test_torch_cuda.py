@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 
 from deneva_tpu_torch.config import Config  # noqa: E402
 from deneva_tpu_torch.engine.scheduler import Engine  # noqa: E402
-from deneva_tpu_torch.ops import fused  # noqa: E402
+from deneva_tpu_torch.ops import fused, rebase  # noqa: E402
 from deneva_tpu_torch.profile_tick import breakdown, trace_kernels  # noqa: E402
 from deneva_tpu_torch.storage.ordered import OrderedIndex  # noqa: E402
 
@@ -314,7 +314,7 @@ def test_wait_die_engine_cuda_matches_cpu(dev, workload):
 def test_timestamp_engine_cuda_matches_cpu(dev, workload, twr):
     # TIMESTAMP: the (key, ts) pack on the kernel, wts/rts raised by
     # in-place scatter-max (order-free, so the atomics give the CPU's
-    # arrays), the TPC-C restock chain's depth read on the host
+    # arrays), the TPC-C restock chain in closed form
     cfg = Config(cc_alg="TIMESTAMP", fused_arbitrate=True, ts_twr=twr,
                  **WAIT_DIE_CFGS[workload])
     gpu = Engine(cfg, device=dev)
@@ -328,8 +328,6 @@ def test_timestamp_engine_cuda_matches_cpu(dev, workload, twr):
         assert torch.equal(sg.tables[k].cpu(), sc.tables[k]), k
     for k in ("wts", "rts"):
         assert torch.equal(sg.db[k].cpu(), sc.db[k]), k
-    if workload == "tpcc":
-        assert gpu.workload.chain_depths == cpu.workload.chain_depths
 
 
 def test_timestamp_pack_matches_plain_in_one_launch(dev):
@@ -403,7 +401,6 @@ def test_graph_replay_matches_eager(dev, workload, cc):
     _assert_same_run(eng, se, sg)
     assert eng.summary(sg)["txn_cnt"] > 0
     assert {k: c1[k] - c0[k] for k in c0} == {k: c2[k] - c1[k] for k in c0}
-    assert c2.get("restock_overflow", 0) == 0
     # launches counted at capture only: the warm-up's 3 ticks and the 3
     # phase graphs, not the 40 replays
     per_tick = sum(eng.graphs.launches[0].values())
@@ -439,19 +436,62 @@ def test_graph_replay_traced_launches(dev):
     assert per["fused_sort_scan_launches"] == 7, per
 
 
+def _rebase_arrays(dev, n, seed):
+    rng = np.random.default_rng(seed)
+    edge = np.array([0, 1, 2**30 - 1, 2**30, 2**30 + 1, 2**31 - 1])
+    vals = np.concatenate([edge, rng.integers(0, 2**31, n)])[:n]
+    return [torch.from_numpy(rng.permutation(vals).astype(np.int32)).to(dev)
+            for _ in range(2)]
+
+
+@pytest.mark.parametrize("n", [1, 5, 4096, 1_000_003])
+@pytest.mark.parametrize("shift", [0, 1, 2**30])
+def test_rebase_kernel_matches_plain(dev, n, shift):
+    # one launch rebases both arrays in place; int4 body and scalar tail
+    a, b = _rebase_arrays(dev, n, n + shift)
+    want = [x.clone() for x in (a, b)]
+    s = torch.tensor(shift, dtype=torch.int64, device=dev)
+    rebase.rebase_plain(*want, s)
+    before = rebase.LAUNCHES
+    rebase.rebase_(a, b, s)
+    assert rebase.LAUNCHES == before + 1
+    assert torch.equal(a, want[0]) and torch.equal(b, want[1])
+
+
+def test_rebase_kernel_in_a_graph_reads_its_shift_at_replay(dev):
+    # captured once, the kernel takes the shift the tick computed before it
+    # at each replay: 0 leaves the arrays, 2^30 lowers them
+    a, b = _rebase_arrays(dev, 4099, 3)
+    a0, b0 = a.clone(), b.clone()
+    s = torch.zeros((), dtype=torch.int64, device=dev)
+    rebase.rebase_(a, b, s)       # build and load before the capture
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        rebase.rebase_(a, b, s)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(a, a0) and torch.equal(b, b0)
+    s.fill_(2**30)
+    g.replay()
+    rebase.rebase_plain(a0, b0, s)
+    assert torch.equal(a, a0) and torch.equal(b, b0)
+
+
+def test_rebase_kernel_refuses_other_arrays(dev):
+    a = torch.zeros(8, dtype=torch.int32, device=dev)
+    s = torch.zeros((), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        rebase.rebase_(a, a[:4], s)
+    with pytest.raises(ValueError, match="int64"):
+        rebase.rebase_(a, a.clone(), s.to(torch.int32))
+
+
 def test_graph_capture_failure_raises(dev):
-    # a tick that reads the device on the host cannot be captured: the
-    # restock chain with no plugin bound reads its depth.  run_compiled
+    # a tick that reads the device on the host cannot be captured: here
+    # the eager tick's effect branch, given to run_compiled.  run_compiled
     # raises; it never falls back to the eager tick
-    from deneva_tpu_torch.cc.no_wait import NoWait
-    from deneva_tpu_torch.engine.scheduler import make_tick
-
-    class Unbounded(NoWait):
-        row_writers_per_tick = None
-
     eng = Engine(Config(fused_arbitrate=True, **GRAPH_CFGS["tpcc"]),
                  device=dev)
-    eng._tick_fns[True] = make_tick(eng.cfg, Unbounded(), eng.pool_dev,
-                                    eng.workload, on_device=True)
+    eng._tick_fns[True] = eng._tick_fns[False]
     with pytest.raises(RuntimeError, match="capture"):
         eng.run_compiled(3)

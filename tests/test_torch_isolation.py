@@ -30,6 +30,7 @@ MODULES = (
     "deneva_tpu_torch.engine.scheduler", "deneva_tpu_torch.engine.graph",
     "deneva_tpu_torch.ops.segment",
     "deneva_tpu_torch.ops.fused", "deneva_tpu_torch.ops.cuda_build",
+    "deneva_tpu_torch.ops.rebase",
     "deneva_tpu_torch.cc", "deneva_tpu_torch.cc.base",
     "deneva_tpu_torch.cc.compact", "deneva_tpu_torch.cc.twopl",
     "deneva_tpu_torch.cc.no_wait", "deneva_tpu_torch.cc.timestamp",
@@ -125,6 +126,33 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build, "_LOADED", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.load_library("fused_sort_scan")
+
+
+def test_build_all_starts_every_build_and_raises_on_a_failure(
+        monkeypatch, tmp_path):
+    # one nvcc per source, all started before the first is waited for; a
+    # failed one raises, and no library is left behind
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: str(nvcc))
+    monkeypatch.setattr(cuda_build, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    events = []
+    popen = cuda_build.subprocess.Popen
+
+    def spy(*a, **k):
+        proc = popen(*a, **k)
+        events.append("start")
+        wait = proc.communicate
+        proc.communicate = lambda: (events.append("wait"), wait())[1]
+        return proc
+
+    monkeypatch.setattr(cuda_build.subprocess, "Popen", spy)
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        cuda_build.build_all(("fused_sort_scan", "ts_rebase"))
+    assert events[:3] == ["start", "start", "wait"], events
+    assert not list((tmp_path / "build").glob("*.so"))
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):

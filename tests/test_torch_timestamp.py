@@ -9,6 +9,7 @@ sequential oracle within tests/test_parity.py's TIMESTAMP thresholds.
 Every engine comparison is exact, the per-row ``wts``/``rts`` arrays
 included."""
 
+import contextlib
 import warnings
 
 import jax.numpy as jnp
@@ -126,6 +127,23 @@ def test_raise_max_spreads_dead_lanes_and_is_exact():
     assert dst.tolist() == [7, 0, 12, 3]
 
 
+def test_rebase_plain_is_the_reference_rule():
+    # the plain version (the CPU path and the kernel's reference) against
+    # the JAX plugin's max(x - shift, 0), at the values around the shift
+    edge = [0, 1, 2**30 - 1, 2**30, 2**30 + 1, 2**31 - 1]
+    vals = np.array(edge + list(np.random.default_rng(0).integers(
+        0, 2**31, 200)), np.int32)
+    for shift in (0, 1, 2**30):
+        a, b = torch.from_numpy(vals.copy()), torch.from_numpy(vals[::-1]
+                                                               .copy())
+        tts.rebase.rebase_plain(a, b, torch.tensor(shift))
+        want = jts.Timestamp().on_ts_rebase(
+            None, {"wts": jnp.asarray(vals), "rts": jnp.asarray(vals[::-1])},
+            shift)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(want["wts"]))
+        np.testing.assert_array_equal(b.numpy(), np.asarray(want["rts"]))
+
+
 def test_rebase_in_place():
     db = {"wts": torch.tensor([0, 5, 2**30, 2**30 + 7], dtype=torch.int32),
           "rts": torch.tensor([2**30 + 1, 3, 0, 9], dtype=torch.int32)}
@@ -212,30 +230,98 @@ def test_ycsb_engine_matches_reference(fused, twr):
     assert eng.summary(st)["twopl_wait_cnt"] > 0
 
 
-def _deep_chains(kw, n_ticks, chunks=None):
-    je, js, te, ts = t_tpcc._run_both(kw, n_ticks, chunks)
+@contextlib.contextmanager
+def restock_depths(monkeypatch):
+    """Record, for each call of the port's TPC-C effect body, the depth of
+    its deepest restock chain: the most committing NewOrder entries on one
+    STOCK row (a host read, so for eager ticks only)."""
+    depths = []
+    body = tpcc.TPCCWorkload._apply_entries_body
+
+    def recording(self, cfg, t, key_local, part, role_f, earg, earg2, cts,
+                  eff):
+        rows = key_local[eff & ((role_f & 7) == tpcc.ROLE_S_NO)]
+        depths.append(int(torch.unique(rows, return_counts=True)[1].max())
+                      if rows.numel() else 0)
+        return body(self, cfg, t, key_local, part, role_f, earg, earg2, cts,
+                    eff)
+
+    with monkeypatch.context() as m:
+        m.setattr(tpcc.TPCCWorkload, "_apply_entries_body", recording)
+        yield depths
+
+
+#: the TPC-C cell of tests/test_parity.py under TIMESTAMP (4 warehouses,
+#: 128 items, B=64): several txns commit to one STOCK row in a tick
+DEEP_TPCC = dict(workload="TPCC", cc_alg="TIMESTAMP", batch_size=64,
+                 num_wh=4, cust_per_dist=1000, max_items=128,
+                 query_pool_size=1 << 10, warmup_ticks=0, synth_table_size=8)
+
+
+def _deep_chains(kw, n_ticks, monkeypatch, chunks=None):
+    with restock_depths(monkeypatch) as depths:
+        je, js, te, ts = t_tpcc._run_both(kw, n_ticks, chunks)
     s = t_tpcc._assert_engine_parity(je, js, te, ts)
     assert_db_equal(js, ts)
     _assert_aborted(s)
-    return te.workload.chain_depths
+    return depths
 
 
 @pytest.mark.parametrize("fused", [False, True])
-def test_tpcc_engine_matches_reference(fused):
+def test_tpcc_engine_matches_reference(fused, monkeypatch):
     _deep_chains(t_tpcc.tpcc_kw(cc_alg="TIMESTAMP", fused_arbitrate=fused),
-                 60)
+                 60, monkeypatch)
 
 
-def test_tpcc_parity_cell_with_deep_restock_chains():
-    # the TPC-C cell of tests/test_parity.py under TIMESTAMP (4 warehouses,
-    # 128 items, B=64), eager: several txns commit to one STOCK row in one
-    # tick, so the restock chain runs more than one pass, read on the host
-    kw = dict(workload="TPCC", cc_alg="TIMESTAMP", batch_size=64, num_wh=4,
-              cust_per_dist=1000, max_items=128, query_pool_size=1 << 10,
-              warmup_ticks=0, synth_table_size=8)
-    depths = _deep_chains(kw, 50, chunks=[20, 30])
-    assert sum(depths.values()) == 50
+def test_tpcc_parity_cell_with_deep_restock_chains(monkeypatch):
+    # eager: several txns commit to one STOCK row in one tick, and the
+    # restock chain's closed form gives the reference's while_loop result
+    depths = _deep_chains(DEEP_TPCC, 50, monkeypatch, chunks=[20, 30])
+    assert len(depths) == 50
     assert max(depths) > 1, depths
+
+
+def _restock_step(q, k):
+    """new_order_9's rule (tpcc_txn.cpp:900-906), as the reference's
+    while_loop applies it."""
+    return np.where(q > k + 10, q - k, q - k + 91)
+
+
+def test_restock_closed_form_holds_on_its_range():
+    # every s_quantity the tables can hold (init [10, 100], the rule's
+    # image [11, 101]) and every entry quantity (1..16): the step equals
+    # 11 + (q - 11 - k) mod 91 and stays in [10, 101]
+    q, k = np.meshgrid(np.arange(10, 102), np.arange(1, 17))
+    step = _restock_step(q, k)
+    np.testing.assert_array_equal(step, 11 + np.mod(q - 11 - k, 91))
+    assert step.min() >= 11 and step.max() <= 101
+
+
+@pytest.mark.parametrize("depth", [1, 2, 7, 64])
+def test_restock_chain_of_any_depth_matches_the_sequential_rule(depth):
+    # `depth` committing entries on one STOCK row (and one on another) in
+    # one tick, in shuffled cts order: the body's closed form gives the
+    # rule applied one entry at a time in cts order
+    rng = np.random.default_rng(depth)
+    cfg = TConfig(**t_tpcc.tpcc_kw(cc_alg="TIMESTAMP"))
+    base_row = tpcc.catalog(cfg).tables["STOCK"].base
+    key = np.array([base_row + 3] * depth + [base_row + 5])
+    cts = rng.permutation(depth + 1) + 1
+    earg = rng.integers(0, 1 << 5, depth + 1)     # quantity (earg & 15) + 1
+    wl = tpcc.TPCCWorkload()
+    tables = wl.init_tables(cfg, 0)
+    q0 = tables["s_quantity"].numpy().copy()
+    as_t = lambda a: torch.from_numpy(np.asarray(a).astype(np.int32))
+    wl._apply_entries_body(
+        cfg, tables, as_t(key), 0,
+        torch.full((depth + 1,), tpcc.ROLE_S_NO, dtype=torch.int32),
+        as_t(earg), torch.zeros(depth + 1, dtype=torch.int32), as_t(cts),
+        torch.ones(depth + 1, dtype=torch.bool))
+    want = q0.copy()
+    for i in np.argsort(cts):
+        r = key[i] - base_row
+        want[r] = _restock_step(want[r], (earg[i] & 15) + 1)
+    np.testing.assert_array_equal(tables["s_quantity"].numpy(), want)
 
 
 @pytest.mark.parametrize("fused", [False, True])
