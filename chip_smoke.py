@@ -59,8 +59,21 @@ Phases, each printing one line:
      its bound counting each column at its own width; then CPU == CUDA
      under TIMESTAMP on the three workloads and on the headline with
      ts_twr (fewer ticks, see TO_CPU_TICKS), wts and rts included;
- 14. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
-     pps, pps_wait_die, headline_timestamp and tpcc_timestamp cells: 300
+ 14. MVCC: the headline_mvcc cell as phase 4 (3 launches per tick: the
+     decision sort, the unpermute and the version insert; 2 rebase kernel
+     launches per tick, the rings in ring mode and rts0/w_floor in plain
+     mode; 0 host syncs and 0 cummax in a traced window; the tail-fold
+     counter), the rebase kernel in ring mode held bit-equal to its plain
+     version on the cell's own 1.07 GB of rings at shift 0 and 2^30 and
+     timed, the tpcc_mvcc cell as phase 6 (TPC-C conservation, the deepest
+     restock chain per tick, 1 host sync per eager tick, 0 cummax), every
+     new pack (the version insert, 4 columns by 2 keys at B*R lanes)
+     captured from a tick, held bit-equal and timed; then CPU == CUDA
+     under MVCC on the three workloads (see MV_CPU_TICKS), rings, rts0
+     and w_floor included;
+ 15. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
+     pps, pps_wait_die, headline_timestamp, tpcc_timestamp, headline_mvcc
+     and tpcc_mvcc cells: 300
      ticks eager and 300 replayed from the same initial state give equal
      summaries, data, tables, CC state (wts, rts) and effect bodies; a
      replayed tick makes 0 host syncs (sync debug mode "error");
@@ -68,11 +81,13 @@ Phases, each printing one line:
      the full-width effect body (a captured tick runs it whatever the
      reference's choice, see workloads/base.py), and a traced window of
      replays shows them; the eager and the graph tick ms (6 windows of 50 ticks, CUDA events) beside the
-     card's name and power limit, and the peak memory of both; the packs only a captured tick sorts (the full-width
+     card's name and power limit, every window, the replay windows once
+     more after the trace, the SM clock nvidia-smi samples while the
+     replays run, and the peak memory of both; the packs only a captured tick sorts (the full-width
      effect body) held bit-equal to the plain version and timed.
 Then one JSON line of per-kernel numbers (one entry per pack of the sort
-kernel, and one for the rebase kernel at the main path's shift of 0, with
-its numbers at 2^30 under ``rebase_tick``; ``launches``
+kernel, and one per mode of the rebase kernel at the main path's shift of
+0, with its numbers at 2^30 under ``rebase_tick``; ``launches``
 counts the wrapper's launches on the eager paths, and for a pack only the
 graph path sorts, its warm-up and capture; ``replayed_launches`` those the
 graph replays ran) and the final
@@ -116,9 +131,13 @@ WD_CPU_TICKS = {"pps_wait_die": 40, "headline": 20, "tpcc": 20}
 TO_CPU_TICKS = (("headline_timestamp", {}, 20), ("tpcc_timestamp", {}, 20),
                 ("pps", {"cc_alg": "TIMESTAMP"}, 20),
                 ("headline_timestamp", {"ts_twr": True}, 20))
+#: ticks of the CPU == CUDA checks under MVCC, by cell and overrides
+MV_CPU_TICKS = (("headline_mvcc", {}, 20), ("tpcc_mvcc", {}, 20),
+                ("pps", {"cc_alg": "MVCC"}, 20))
 #: cells of the graph phase, and its ticks on each path
 GRAPH_CELLS = ("headline", "tpcc", "pps", "pps_wait_die",
-               "headline_timestamp", "tpcc_timestamp")
+               "headline_timestamp", "tpcc_timestamp", "headline_mvcc",
+               "tpcc_mvcc")
 GRAPH_TICKS = 300
 #: the packs a headline tick sorts, as (columns, keys, lanes, shift)
 PACK_NAMES = {
@@ -128,18 +147,23 @@ PACK_NAMES = {
 
 
 def access_packs(eng, prefix):
-    """The access phase's first sort in a tick of `eng` at its B*R lanes,
-    by (columns, keys, lanes, shift), with its name, and the launches per
-    tick: 2PL's lock sort (keykind, ts, payload) by 2 keys with the row
-    shift, or T/O's decision sort (key, ts, is_write, held, req, w_abort,
-    lane) by 2 keys.  Both are followed by the unpermute, 2 columns by 1
-    key at the same width."""
+    """The CC plugin's own sorts in a tick of `eng` at its B*R lanes, by
+    (columns, keys, lanes, shift), with their names, and the launches of
+    each per tick: 2PL's lock sort (keykind, ts, payload) by 2 keys with
+    the row shift, or the T/O and MVCC decision sort (key, ts, is_write,
+    held, req, w_abort, lane) by 2 keys; all three are followed by the
+    unpermute, 2 columns by 1 key at the same width.  MVCC's commit adds
+    its version insert (key, BIG_TS - ts, ts, committed write) by 2 keys."""
     N = eng.cfg.batch_size * eng.pool.max_req
-    if eng.plugin.name == "TIMESTAMP":
-        pack, name = (7, 2, N, 0), "T/O decision sort"
+    if eng.plugin.name in ("TIMESTAMP", "MVCC"):
+        pack, name = (7, 2, N, 0), "T/O and MVCC decision sort"
     else:
         pack, name = (3, 2, N, 1), "lock sort"
-    return {pack: f"{prefix} {name}"}, {pack: 1}
+    names, every = {pack: f"{prefix} {name}"}, {pack: 1}
+    if eng.plugin.name == "MVCC":
+        names[(4, 2, N, 0)] = f"{prefix} MVCC version insert"
+        every[(4, 2, N, 0)] = 1
+    return names, every
 
 
 def tpcc_packs(eng):
@@ -407,11 +431,11 @@ def measure_pack(fused, name, cols, nk, shift):
                 bound_ms=bms, bound_by=by)
 
 
-def phase_trace(eng, state, name="headline"):
+def phase_trace(eng, state, name="headline", per_tick=2):
     """A torch.profiler trace of TRACE_TICKS ticks of a YCSB cell: the
-    kernel's device launches per tick and the cummax kernels left in the
-    tick; then the same ticks under the CUDA sync debug mode: no host
-    sync.  Returns the state after them."""
+    kernel's device launches per tick (`per_tick`) and the cummax kernels
+    left in the tick; then the same ticks under the CUDA sync debug mode:
+    no host sync.  Returns the state after them."""
     from deneva_tpu_torch.profile_tick import (breakdown, host_syncs,
                                                trace_kernels)
     box = [state]
@@ -419,16 +443,17 @@ def phase_trace(eng, state, name="headline"):
     def tick():
         box[0] = eng.tick(box[0])
 
-    per = breakdown(trace_kernels(tick, TRACE_TICKS, 2 * TRACE_TICKS),
+    per = breakdown(trace_kernels(tick, TRACE_TICKS, per_tick * TRACE_TICKS),
                     TRACE_TICKS)
     say("trace", f"{TRACE_TICKS} {name} ticks (torch.profiler): "
         f"{per['kernel_launches']:.1f} device launches per tick, device "
         f"busy {per['device_busy_us']:.1f} us per tick, fused kernel "
         f"{per['fused_sort_scan_launches']:g} launches per tick, cummax "
         f"kernels {per['cummax_launches']:g} per tick")
-    if per["fused_sort_scan_launches"] != 2:
+    if per["fused_sort_scan_launches"] != per_tick:
         raise AssertionError(f"{per['fused_sort_scan_launches']} fused "
-                             "kernel launches per traced tick, expected 2")
+                             "kernel launches per traced tick, expected "
+                             f"{per_tick}")
     if per["cummax_launches"]:
         raise AssertionError(f"the {name} tick still runs torch.cummax")
     syncs, sites = host_syncs(tick, TRACE_TICKS)
@@ -441,9 +466,12 @@ def phase_trace(eng, state, name="headline"):
 
 def phase_headline(cells, Engine, timed_run, fused, dev, name="headline"):
     """The YCSB cell `name` on the card: HEADLINE_TICKS ticks in timed
-    windows, 2 kernel launches per tick, no fallback, the increment oracle
-    and a traced window.  Returns the engine, the state after the traced
-    ticks, and the launches by pack."""
+    windows, the sort kernel's launches per tick (2, or 3 under MVCC), no
+    fallback, the increment oracle and a traced window.  Returns the
+    engine, the state after the traced ticks, the sort kernel's launches
+    by pack and the rebase kernel's launches by rule over the timed
+    ticks."""
+    from deneva_tpu_torch.ops import rebase
     cfg = cells.config(name)
     t0 = time.perf_counter()
     eng = Engine(cfg, device=dev)
@@ -454,6 +482,7 @@ def phase_headline(cells, Engine, timed_run, fused, dev, name="headline"):
     torch.cuda.reset_peak_memory_stats(dev)
     fused.reset_fallbacks()
     fused.reset_launches()
+    rebase.reset_launches()
     # the timed ticks in windows, each timed with CUDA events
     window_ms = []
     for _ in range(HEADLINE_TICKS // WINDOW_TICKS):
@@ -461,6 +490,7 @@ def phase_headline(cells, Engine, timed_run, fused, dev, name="headline"):
         window_ms.append(per_tick * 1e3)
     launches = fused.LAUNCHES
     by_pack = dict(fused.LAUNCHES_BY_PACK)
+    rebase_launches = dict(rebase.LAUNCHES)
     snap = fused.fallback_snapshot()
     peak = torch.cuda.max_memory_allocated(dev)
     s = eng.summary(state)
@@ -474,9 +504,12 @@ def phase_headline(cells, Engine, timed_run, fused, dev, name="headline"):
         f"committed_txn_per_s={commits / HEADLINE_TICKS / tick_ms * 1e3:.1f}"
         f" abort_rate={s['abort_rate']:.6f} peak_mem_mb={peak / 2**20:.1f}")
     say(name, f"kernel launches={launches} by pack={by_pack} "
-        f"fallbacks={snap['count']}")
-    if launches != 2 * HEADLINE_TICKS:
-        raise AssertionError(f"expected {2 * HEADLINE_TICKS} kernel "
+        f"fallbacks={snap['count']}; rebase kernel launches="
+        f"{rebase_launches}")
+    _, every = access_packs(eng, name)
+    per_tick = sum(every.values()) + 1             # and the unpermute
+    if launches != per_tick * HEADLINE_TICKS:
+        raise AssertionError(f"expected {per_tick * HEADLINE_TICKS} kernel "
                              f"launches, counted {launches}")
     if snap["count"] != 0:
         raise AssertionError(f"fused sort fell back: {snap}")
@@ -484,7 +517,8 @@ def phase_headline(cells, Engine, timed_run, fused, dev, name="headline"):
         raise AssertionError("data.sum() != write_cnt on the CUDA run")
     if not s["txn_cnt"] > 0 or not math.isfinite(tick_ms):
         raise AssertionError(f"the {name} run committed nothing")
-    return eng, phase_trace(eng, state, name), by_pack
+    return (eng, phase_trace(eng, state, name, per_tick), by_pack,
+            rebase_launches)
 
 
 def capture_packs(fused, fn):
@@ -798,40 +832,40 @@ def phase_tpcc_cpu_equal(cells, Engine, dev, pool):
         f"holds ({', '.join(laws)})")
 
 
-def measure_rebase(rebase, db, dev):
-    """The rebase kernel on clones of a cell's wts and rts (and on random
-    and edge values of the same width): bit-equal to its plain version at
-    the shift of a tick that does not rebase (0) and of one that does
-    (2^30); per shift, its time per call (CUDA events) and on the device
-    (torch.profiler), the plain version's, and the bound: the shift read
-    once, and at 2^30 both arrays read and written once.  Restores the
-    launch counter."""
-    a, b = db["wts"].clone(), db["rts"].clone()
+def measure_rebase(rebase, a, b, dev, label, ring=False):
+    """The rebase kernel (``ring``: in ring mode) on clones of a cell's
+    arrays `a` and `b` (and on random and edge values of the same width):
+    bit-equal to its plain version at the shift of a tick that does not
+    rebase (0) and of one that does (2^30); per shift, its time per call
+    (CUDA events) and on the device (torch.profiler), the plain
+    version's, and the bound: the shift read once, and at 2^30 both
+    arrays read and written once.  Restores the launch counter."""
+    a, b = a.clone(), b.clone()
     n = a.shape[0]
     gen = torch.Generator(device=dev).manual_seed(5)
     rand = torch.randint(0, 2**31 - 1, (n,), generator=gen, device=dev,
                          dtype=torch.int32)
-    edge = torch.tensor([0, 1, 2**30 - 1, 2**30, 2**30 + 1, 2**31 - 1],
-                        dtype=torch.int32, device=dev)
-    before = rebase.LAUNCHES
+    edge = torch.tensor([0, 1, 2, 2**30 - 1, 2**30, 2**30 + 1, 2**30 + 2,
+                         2**31 - 1], dtype=torch.int32, device=dev)
+    before = dict(rebase.LAUNCHES)
     err = 0
     for shift in (0, 2**30):
         s = torch.tensor(shift, dtype=torch.int64, device=dev)
         for x, y in ((a, b), (rand, rand.flip(0)), (edge, edge.flip(0))):
             got, want = [x.clone(), y.clone()], [x.clone(), y.clone()]
-            rebase.rebase_(*got, s)
-            rebase.rebase_plain(*want, s)
+            rebase.rebase_(*got, s, ring=ring)
+            rebase.rebase_plain(*want, s, ring=ring)
             err = max(err, *(int((g.to(torch.int64) - w.to(torch.int64))
                                  .abs().max().item())
                              for g, w in zip(got, want)))
     if err:
-        raise AssertionError(f"rebase kernel != plain: {err}")
+        raise AssertionError(f"rebase kernel != plain on {label}: {err}")
     out = {}
     for shift in (0, 2**30):
         s = torch.tensor(shift, dtype=torch.int64, device=dev)
         x, y = a.clone(), b.clone()
-        call = lambda: rebase.rebase_(x, y, s)
-        plain = lambda: rebase.rebase_plain(x, y, s)
+        call = lambda: rebase.rebase_(x, y, s, ring=ring)
+        plain = lambda: rebase.rebase_plain(x, y, s, ring=ring)
         ms = cuda_ms(call)
         dev_ms, dev_launches, _ = device_ms(call)
         plain_ms = cuda_ms(plain)
@@ -844,13 +878,15 @@ def measure_rebase(rebase, db, dev):
             plain_ms=plain_ms, plain_device_ms=plain_dev_ms,
             plain_launches=plain_launches, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations")
-        say("rebase", f"wts+rts {n} rows each, shift {shift}: bit-equal; "
+        say("rebase", f"{label}, {n} cells each, shift {shift}: bit-equal; "
             f"kernel {ms:.4f} ms per call ({dev_ms * 1e3:.1f} us on the "
             f"device in {dev_launches:g} kernel), plain {plain_ms:.4f} ms "
             f"({plain_dev_ms * 1e3:.1f} us on the device in "
             f"{plain_launches:g} kernels, torch.profiler), bound "
             f"{out[shift]['bound_ms']:.6f} ms ({out[shift]['bound_by']})")
-    rebase.LAUNCHES = before
+    rebase.LAUNCHES.clear()
+    rebase.LAUNCHES.update(before)
+    del a, b, x, y, rand
     return dict(err=err, n=n, by_shift=out)
 
 
@@ -871,20 +907,18 @@ def phase_timestamp(cells, Engine, timed_run, fused, rebase, dev, rows,
         by_pack.update({p: counted.get(p, 0) for p in new})
 
     # the rebase kernel runs once on every tick (shift 0 unless the
-    # counter passed its threshold): its launches on this run
-    rebase.reset_launches()
-    eng, state, hb = phase_headline(cells, Engine, timed_run, fused, dev,
-                                    "headline_timestamp")
-    rebase_launches = rebase.LAUNCHES
-    if rebase_launches < HEADLINE_TICKS:
+    # counter passed its threshold): its launches on the timed ticks
+    eng, state, hb, rebase_launches = phase_headline(
+        cells, Engine, timed_run, fused, dev, "headline_timestamp")
+    if rebase_launches != {"plain": HEADLINE_TICKS}:
         raise AssertionError(f"{rebase_launches} rebase kernel launches on "
-                             f"the headline_timestamp run of more than "
-                             f"{HEADLINE_TICKS} ticks")
+                             f"{HEADLINE_TICKS} headline_timestamp ticks")
     acc_names, _ = access_packs(eng, "headline")
     measure_new(capture_packs(fused, lambda: eng.tick(state)),
                 {**PACK_NAMES, **acc_names}, "headline_timestamp", hb)
-    reb = measure_rebase(rebase, state.db, dev)
-    reb["launches"] = rebase_launches
+    reb = measure_rebase(rebase, state.db["wts"], state.db["rts"], dev,
+                         "wts+rts")
+    reb["launches"] = rebase_launches["plain"]
     del eng, state
 
     eng, state, init, rec = run_effect_cell(
@@ -925,6 +959,91 @@ def phase_timestamp(cells, Engine, timed_run, fused, rebase, dev, rows,
     return reb
 
 
+def phase_mvcc(cells, Engine, timed_run, fused, rebase, dev, rows, names,
+               by_pack, pps_pool):
+    """MVCC on the card (phase 14 of the module docstring).  The packs an
+    MVCC tick sorts that earlier phases did not are held to the plain
+    version and timed into `rows`, named in `names`, and their launches on
+    these paths go into `by_pack`.  Returns the ring-mode rebase record
+    (``measure_rebase``) with its launches on the headline_mvcc run."""
+    from deneva_tpu_torch.cc.mvcc import Mvcc
+    from deneva_tpu_torch.workloads import tpcc
+
+    def measure_new(packs, cell_names, cell, counted):
+        new = {p: c for p, c in packs.items() if p not in rows}
+        names.update(cell_names)
+        measure_captured(fused, rows, new, cell_names, names, cell)
+        by_pack.update({p: counted.get(p, 0) for p in new})
+
+    def no_cummax(name, per):
+        if per["cummax_launches"]:
+            raise AssertionError(f"the {name} tick runs torch.cummax")
+
+    # the rebase kernel runs twice on every tick: the rings in ring mode,
+    # rts0 and w_floor in plain mode
+    eng, state, hb, rebase_launches = phase_headline(
+        cells, Engine, timed_run, fused, dev, "headline_mvcc")
+    s = eng.summary(state)
+    mb = sum(v.numel() * v.element_size() for v in state.db.values()) / 2**20
+    say("headline_mvcc", f"rebase kernel launches={rebase_launches} over "
+        f"{HEADLINE_TICKS} ticks; mvcc_tail_fold_cnt="
+        f"{s['mvcc_tail_fold_cnt']}; version state on the card {mb:.1f} MB")
+    if rebase_launches != {"plain": HEADLINE_TICKS, "ring": HEADLINE_TICKS}:
+        raise AssertionError(f"{rebase_launches} rebase kernel launches on "
+                             f"{HEADLINE_TICKS} headline_mvcc ticks, "
+                             "expected 1 per tick of each rule")
+    acc_names, _ = access_packs(eng, "headline")
+    measure_new(capture_packs(fused, lambda: eng.tick(state)),
+                {**PACK_NAMES, **acc_names}, "headline_mvcc", hb)
+    reb = measure_rebase(rebase, state.db["w_ring"], state.db["r_ring"], dev,
+                         "w_ring+r_ring", ring=True)
+    reb["launches"] = rebase_launches["ring"]
+    del eng, state
+
+    eng, state, init, rec = run_effect_cell(
+        cells, "tpcc_mvcc", Engine, timed_run, fused, dev, tpcc_packs,
+        TPCC_TICKS, tpcc.checksums)
+    payments, neworders, laws = check_tpcc_conservation(
+        tpcc, eng.cfg, init, state.tables, rec["s"])
+    say("tpcc_mvcc", f"conservation holds ({', '.join(laws)}): {payments} "
+        f"Payments, {neworders} NewOrders; mvcc_tail_fold_cnt="
+        f"{rec['s']['mvcc_tail_fold_cnt']}")
+    state, depths = restock_depths(tpcc, eng, state, TPCC_TICKS)
+    say("tpcc_mvcc", f"deepest restock chain per tick (committing NewOrder "
+        f"entries on one STOCK row) over {TPCC_TICKS} more ticks: {depths} "
+        "ticks by depth")
+    if sum(depths.values()) != TPCC_TICKS:
+        raise AssertionError("not every tpcc_mvcc tick ran its effect body "
+                             "once")
+    # the one host read of an eager tick (its compact/full choice)
+    packs, per = trace_cell("tpcc_mvcc", eng, state, fused, 1, ("base.py",))
+    no_cummax("tpcc_mvcc", per)
+    measure_new(packs, rec["names"], "tpcc_mvcc", rec["by_pack"])
+    del eng, state
+
+    for name, over, ticks in MV_CPU_TICKS:
+        pool = pps_pool if name == "pps" else None
+        fused.reset_launches()
+        s, cpu, sc, gpu, sg = phase_cpu_equal(cells, name, Engine, dev, ticks,
+                                              pool=pool, **over)
+        counted = dict(fused.LAUNCHES_BY_PACK)
+        if not s["txn_cnt"] > 0:
+            raise AssertionError(f"{name} {over}: no commit")
+        vis = Mvcc.visible(cpu.cfg, sc.db)
+        say("cpu", f"{name} {over}: MVCC state equal, {vis['w_ring'].numel()}"
+            f" ring cells, {int((vis['w_ring'] > 0).sum())} versions, "
+            f"max w_floor {int(vis['w_floor'].max())}, mvcc_tail_fold_cnt="
+            f"{s['mvcc_tail_fold_cnt']}")
+        if name == "pps":
+            # the pps MVCC pack, from one tick of the CUDA run; its
+            # launches are those of that run
+            pnames, _, _ = pps_packs(gpu)
+            packs = capture_packs(fused, lambda: gpu.tick(sg))
+            measure_new(packs, pnames, "pps under MVCC", counted)
+        del cpu, sc, gpu, sg
+    return reb
+
+
 def graph_packs(eng):
     """The names of the packs the cell's tick sorts, by (columns, keys,
     lanes, shift), and the launches of each per tick on the eager path
@@ -958,6 +1077,23 @@ def windows(timed_run, eng, state, compiled):
                                     compiled=compiled)
         ms.append(per_tick * 1e3)
     return state, ms
+
+
+def sm_clocks(fn):
+    """``fn()`` while nvidia-smi samples the SM clock every 20 ms (started
+    half a second before, stopped after): fn's result and the samples in
+    MHz."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "20"], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.5)
+        out = fn()
+    finally:
+        proc.terminate()
+        text = proc.communicate(timeout=30)[0]
+    return out, [int(x) for x in text.split() if x.isdigit()]
 
 
 def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
@@ -999,7 +1135,8 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
     state = eng.advance(0, eng.init_state(), compiled=True)
     torch.cuda.synchronize(dev)
     capture_s = time.perf_counter() - t0
-    state, graph_ms = windows(timed_run, eng, state, True)
+    (state, graph_ms), clocks = sm_clocks(
+        lambda: windows(timed_run, eng, state, True))
     graph_peak = torch.cuda.max_memory_allocated(dev) / 2**20 - base_mb
     counted = dict(fused.LAUNCHES_BY_PACK)
     c2 = wl.counts()
@@ -1068,6 +1205,9 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
     # the inputs of every pack a captured tick sorts (the full-width body)
     packs = capture_packs(fused, lambda: eng.tick(box[0], compiled=True))
     eng._flush_body(box[0])
+    # the replay windows once more, after the trace, on the run's state
+    (_, again_ms), again_clocks = sm_clocks(
+        lambda: windows(timed_run, eng, box[0], True))
 
     e_med, g_med = float(np.median(eager_ms)), float(np.median(graph_ms))
     say("graph", f"{name}: {GRAPH_TICKS} ticks eager == {GRAPH_TICKS} "
@@ -1082,6 +1222,12 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
         f"{g_med:.4f} min={min(graph_ms):.4f} max={max(graph_ms):.4f} "
         f"({len(graph_ms)} windows of {WINDOW_TICKS} ticks, cuda events; "
         f"eager/graph {e_med / g_med:.2f}x) on {gpu_line}")
+    fmt = lambda xs: "[" + ", ".join(f"{x:.4f}" for x in xs) + "]"
+    span = lambda xs: f"{min(xs)}-{max(xs)}" if xs else "no sample"
+    say("graph", f"{name}: graph windows {fmt(graph_ms)} ms (SM clock "
+        f"{span(clocks)} MHz); after the trace {fmt(again_ms)} ms (SM clock "
+        f"{span(again_clocks)} MHz, nvidia-smi every 20 ms); eager windows "
+        f"{fmt(eager_ms)} ms")
     say("graph", f"{name}: replayed tick: 0 host syncs (sync debug mode "
         f"error), {per['kernel_launches']:.1f} device launches, device busy "
         f"{per['device_busy_us']:.1f} us, fused kernel "
@@ -1128,7 +1274,7 @@ def main() -> int:
     phase_gpu()
     phase_build(fused, rebase)
     rows = phase_kernel(fused, dev)
-    _, _, by_pack = phase_headline(cells, Engine, timed_run, fused, dev)
+    _, _, by_pack, _ = phase_headline(cells, Engine, timed_run, fused, dev)
     phase_cpu_equal(cells, "headline", Engine, dev, CPU_TICKS)
     pool, tpcc_by_pack, packs, tpcc_names = phase_tpcc(
         cells, Engine, timed_run, fused, dev)
@@ -1158,6 +1304,8 @@ def main() -> int:
                                  "run")
 
     reb = phase_timestamp(cells, Engine, timed_run, fused, rebase, dev,
+                          rows, names, by_pack, pps_pool)
+    reb_ring = phase_mvcc(cells, Engine, timed_run, fused, rebase, dev,
                           rows, names, by_pack, pps_pool)
 
     gpu_line = phase_gpu()
@@ -1192,22 +1340,27 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
-    r0, r1 = reb["by_shift"][0], reb["by_shift"][2**30]
-    kernels.append({
-        "name": f"ts_rebase[wts+rts {reb['n']} rows, shift 0: a tick that "
-                "does not rebase]",
-        "route": "cuda",
-        "source": "deneva_tpu_torch/csrc/ts_rebase.cu",
-        "replaces": "deneva_tpu/cc/timestamp.py:119",
-        "launches": reb["launches"],
-        "device_launches_per_call": r0["device_launches"],
-        "device_ms": r0["device_ms"],
-        "max_abs_err": reb["err"], "ms": r0["ms"],
-        "plain_ms": r0["plain_ms"], "bound_ms": r0["bound_ms"],
-        "bound_by": r0["bound_by"], "library_ms": None,
-        "rebase_tick": {k: r1[k] for k in ("ms", "device_ms", "plain_ms",
-                                           "bound_ms", "bound_by")},
-    })
+    for rec, what, replaces in (
+            (reb, "wts+rts", "deneva_tpu/cc/timestamp.py:119"),
+            (reb_ring, "w_ring+r_ring, ring mode",
+             "deneva_tpu/cc/mvcc.py:96")):
+        r0, r1 = rec["by_shift"][0], rec["by_shift"][2**30]
+        kernels.append({
+            "name": f"ts_rebase[{what} {rec['n']} cells, shift 0: a tick "
+                    "that does not rebase]",
+            "route": "cuda",
+            "source": "deneva_tpu_torch/csrc/ts_rebase.cu",
+            "replaces": replaces,
+            "launches": rec["launches"],
+            "device_launches_per_call": r0["device_launches"],
+            "device_ms": r0["device_ms"],
+            "max_abs_err": rec["err"], "ms": r0["ms"],
+            "plain_ms": r0["plain_ms"], "bound_ms": r0["bound_ms"],
+            "bound_by": r0["bound_by"], "library_ms": None,
+            "rebase_tick": {k: r1[k] for k in ("ms", "device_ms",
+                                               "plain_ms", "bound_ms",
+                                               "bound_by")},
+        })
     say("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """CC-algorithm registry (the reference's CC_ALG compile switch).  The
-port carries NO_WAIT, WAIT_DIE and TIMESTAMP so far."""
+port carries NO_WAIT, WAIT_DIE, TIMESTAMP and MVCC so far."""
 
 from deneva_tpu_torch.cc.base import AccessDecision, CCPlugin
+from deneva_tpu_torch.cc.mvcc import Mvcc
 from deneva_tpu_torch.cc.no_wait import NoWait, WaitDie
 from deneva_tpu_torch.cc.timestamp import Timestamp
 
@@ -16,6 +17,7 @@ def register(plugin: CCPlugin) -> CCPlugin:
 register(NoWait())
 register(WaitDie())
 register(Timestamp())
+register(Mvcc())
 
 
 def get(name: str) -> CCPlugin:

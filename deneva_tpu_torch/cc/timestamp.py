@@ -57,24 +57,41 @@ def raise_max(dst: torch.Tensor, row, mask, vals) -> None:
     dst.scatter_reduce_(0, idx.to(I64), torch.where(mask, vals, 0), "amax")
 
 
-def _decide(key, ts, is_write, held, req, w_abort, r_abort):
-    """The per-request T/O decision over flat entry arrays: one sort by
-    (key, ts) whose scan gives the row segments, the pending-prewrite
-    prefix of each row ("a write entry with smaller ts on my key"), and the
-    grant/wait/abort rules.  Returns (grant, wait, abort) in entry order."""
+def pending_before(key, ts, is_write, held, req, w_abort, reduce):
+    """The sort both timestamp plugins decide by (this one and
+    ``cc/mvcc.py``): one sort of the flat entry arrays by (key, ts) whose
+    scan gives the row segments, and the pending prewrites among them (a
+    write entry that is held, or requested and not aborted).
+    ``reduce(sts, pending, starts, sidx)`` turns them into a value per
+    sorted lane, returned in entry order."""
     n = key.shape[0]
     orig = torch.arange(n, dtype=I32, device=key.device)
-    (skey, _, s_iw, s_held, s_req, s_wab, s_orig), starts, sidx = \
+    (skey, sts, s_iw, s_held, s_req, s_wab, s_orig), starts, sidx = \
         seg.sort_pack_scan((key, ts, is_write, held, req, w_abort, orig),
                            num_keys=2)
-    live = skey != NULL_KEY
-    pending_w = live & s_iw & (s_held | (s_req & ~s_wab))
-    pw = seg.unpermute(s_orig, seg.seg_any_before(pending_w, starts, sidx))
+    pending = (skey != NULL_KEY) & s_iw & (s_held | (s_req & ~s_wab))
+    return seg.unpermute(s_orig, reduce(sts, pending, starts, sidx))
 
-    grant = req & torch.where(is_write, ~w_abort, ~r_abort & ~pw)
-    wait = req & ~is_write & ~r_abort & pw
+
+def decide_rules(req, is_write, w_abort, r_abort, r_wait):
+    """Grant a write unless it aborts; grant a read unless it aborts or
+    waits on a pending prewrite.  Returns (grant, wait, abort)."""
+    grant = req & torch.where(is_write, ~w_abort, ~r_abort & ~r_wait)
+    wait = req & ~is_write & ~r_abort & r_wait
     abort = req & ~grant & ~wait
     return grant, wait, abort
+
+
+def _decide(key, ts, is_write, held, req, w_abort, r_abort):
+    """The per-request T/O decision over flat entry arrays: a read waits
+    on a pending prewrite before it on its row ("a write entry with
+    smaller ts on my key").  Returns (grant, wait, abort) in entry
+    order."""
+    pw = pending_before(
+        key, ts, is_write, held, req, w_abort,
+        lambda sts, pending, starts, sidx:
+            seg.seg_any_before(pending, starts, sidx))
+    return decide_rules(req, is_write, w_abort, r_abort, pw)
 
 
 class Timestamp(CCPlugin):

@@ -29,6 +29,12 @@
 - ``headline_timestamp``: the ``headline`` cell under TIMESTAMP (basic
   T/O); its per-row ``wts`` and ``rts`` add 134 MB on the card.
 - ``tpcc_timestamp``: the ``tpcc`` cell under TIMESTAMP, nothing cut.
+- ``headline_mvcc``: the ``headline`` cell under MVCC, with the JAX
+  package's version ring of ``his_recycle_len`` = 8 slots per row: the
+  rings ``w_ring`` and ``r_ring`` (16.7M rows x 8 slots, int32) and
+  ``rts0`` and ``w_floor`` add 1.21 GB on the card.
+- ``tpcc_mvcc``: the ``tpcc`` cell under MVCC, nothing cut (1.21 GB of
+  version state over its 16.74M catalog rows).
 """
 
 from __future__ import annotations
@@ -56,6 +62,8 @@ CELLS = {
 CELLS["pps_wait_die"] = dict(CELLS["pps"], cc_alg="WAIT_DIE")
 CELLS["headline_timestamp"] = dict(CELLS["headline"], cc_alg="TIMESTAMP")
 CELLS["tpcc_timestamp"] = dict(CELLS["tpcc"], cc_alg="TIMESTAMP")
+CELLS["headline_mvcc"] = dict(CELLS["headline"], cc_alg="MVCC")
+CELLS["tpcc_mvcc"] = dict(CELLS["tpcc"], cc_alg="MVCC")
 
 
 def config(name: str, **overrides) -> Config:

@@ -27,10 +27,11 @@ The graphs run on static buffers, an ``EngineState`` made by
 ``TxnState`` fields, ``pool_cursor``, ``ts_counter``, ``tick``) are
 copied back into those buffers; what the tick updates in place
 (``stats``, ``data``, ``tables``, ``db``: TIMESTAMP's ``wts`` and ``rts``
-by in-place scatter-max and rebase) is the buffer itself.  So the
-state a replay returns is those buffers, and the next replay overwrites
-it.  The phase graphs share one memory pool: each one's intermediates die
-inside it, so replays in any order on one stream are safe.
+by in-place scatter-max and rebase, MVCC's rings by ``index_copy_`` as
+well) is the buffer itself.  So the state a replay returns is those
+buffers, and the next replay overwrites it.  The phase graphs share one
+memory pool: each one's intermediates die inside it, so replays in any
+order on one stream are safe.
 """
 
 from __future__ import annotations

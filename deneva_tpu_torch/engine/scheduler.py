@@ -11,7 +11,7 @@ once.  One tick:
   5. sends aborted txns to exponential backoff (worker_thread.cpp:160-171).
 
 This is the port of ``deneva_tpu/engine/scheduler.py`` for one slice:
-YCSB, TPC-C or PPS under NO_WAIT, WAIT_DIE or TIMESTAMP, single shard,
+YCSB, TPC-C or PPS under NO_WAIT, WAIT_DIE, TIMESTAMP or MVCC, single shard,
 SERIALIZABLE, NORMAL mode, commit before access, with ``fused_arbitrate``
 on or off and every other opt-in flag off.  ``check_slice`` refuses
 anything else; its single-shard rule also covers the JAX engine's ``part_cnt == 1``
@@ -42,8 +42,8 @@ import torch
 from deneva_tpu_torch import cc as cc_registry
 from deneva_tpu_torch import workloads as wl_registry
 from deneva_tpu_torch.config import (
-    MODE_NORMAL, NO_WAIT, PPS, SERIALIZABLE, TIMESTAMP, TPCC, WAIT_DIE, YCSB,
-    Config, optin_flags,
+    MODE_NORMAL, MVCC, NO_WAIT, PPS, SERIALIZABLE, TIMESTAMP, TPCC, WAIT_DIE,
+    YCSB, Config, optin_flags,
 )
 from deneva_tpu_torch.device import resolve_device
 from deneva_tpu_torch.engine.state import (
@@ -102,7 +102,7 @@ LAT_SAMPLES = 1 << 14
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for a config outside the ported slice."""
     bad = []
-    if cfg.cc_alg not in (NO_WAIT, WAIT_DIE, TIMESTAMP):
+    if cfg.cc_alg not in (NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC):
         bad.append(f"cc_alg={cfg.cc_alg}")
     if cfg.workload not in (YCSB, TPCC, PPS):
         bad.append(f"workload={cfg.workload}")
@@ -124,7 +124,7 @@ def check_slice(cfg: Config) -> None:
     if bad:
         raise NotImplementedError(
             "outside the ported slice (YCSB, TPC-C or PPS under NO_WAIT, "
-            "WAIT_DIE or TIMESTAMP, single shard, default flags): "
+            "WAIT_DIE, TIMESTAMP or MVCC, single shard, default flags): "
             + ", ".join(bad))
 
 

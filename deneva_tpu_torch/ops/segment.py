@@ -108,8 +108,45 @@ def seg_ids(starts: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(starts, 0, dtype=I32) - 1
 
 
-def pos_in_segment(starts: torch.Tensor) -> torch.Tensor:
-    return _iota(starts) - start_index(starts)
+def pos_in_segment(starts: torch.Tensor,
+                   sidx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each lane's position in its segment: its index less its segment's
+    start index ``sidx`` (``sort_pack_scan``'s; computed from ``starts``
+    by a cummax when not given)."""
+    if sidx is None:
+        sidx = start_index(starts)
+    return _iota(starts) - sidx
+
+
+def last_before(mask: torch.Tensor, sidx: torch.Tensor) -> torch.Tensor:
+    """Index of the last lane strictly before me in my segment that has
+    ``mask`` set, -1 if none (``seg_prefix_max(where(mask, lane, -1),
+    starts, -1)``), with no cummax.  An exclusive count of the masked
+    lanes numbers them; their indices go into a list in that order (an
+    ``index_copy_`` at distinct slots, the other lanes to distinct scratch
+    slots past it); lane i reads slot count(i) - 1 and keeps it when it
+    lies at or after its segment start ``sidx[i]``."""
+    n = mask.shape[0]
+    lane = _iota(mask)
+    m = mask.to(I32)
+    before = torch.cumsum(m, 0, dtype=I32) - m
+    slots = torch.empty(2 * n, dtype=I32, device=mask.device)
+    slots.index_copy_(0, torch.where(mask, before, n + lane).to(I64), lane)
+    prev = slots.index_select(0, torch.clamp(before - 1, min=0).to(I64))
+    return torch.where((before > 0) & (prev >= sidx), prev, -1)
+
+
+def seg_prefix_max_sorted(vals: torch.Tensor, mask: torch.Tensor,
+                          sidx: torch.Tensor, identity: int = 0):
+    """``seg_prefix_max(where(mask, vals, identity), starts, identity)``
+    where ``vals`` does not decrease inside a segment and is at least
+    ``identity`` on the masked lanes (a pack sorted by (key, ts) and its
+    ts): the max over the masked lanes before me is then the value of the
+    last of them (``last_before``).  No cummax."""
+    last = last_before(mask, sidx)
+    return torch.where(last >= 0,
+                       vals.index_select(0, torch.clamp(last, min=0)
+                                         .to(I64)), identity)
 
 
 def seg_cumsum_exclusive(x: torch.Tensor, starts: torch.Tensor,

@@ -6,6 +6,7 @@
     python -m deneva_tpu_torch.profile_tick --cell pps_wait_die --ticks 50
     python -m deneva_tpu_torch.profile_tick --cell pps --compiled
     python -m deneva_tpu_torch.profile_tick --cell tpcc_timestamp --compiled
+    python -m deneva_tpu_torch.profile_tick --cell tpcc_mvcc --compiled
 
 Runs the cell's warm-up, then times ``--ticks`` ticks with CUDA events
 (no profiler attached), counting the fused kernel's launches by pack,

@@ -25,6 +25,7 @@ from deneva_tpu_torch import workloads as wl_registry  # noqa: E402
 from deneva_tpu_torch.config import Config as TConfig  # noqa: E402
 from deneva_tpu_torch.engine.scheduler import Engine as TEngine  # noqa: E402
 from deneva_tpu_torch.workloads import base, pps, tpcc  # noqa: E402
+from tests import test_torch_mvcc as t_mv  # noqa: E402
 from tests import test_torch_timestamp as t_to  # noqa: E402
 
 POOL_FIELDS = ("keys", "is_write", "n_req", "home_part", "txn_type", "args",
@@ -206,6 +207,38 @@ def test_timestamp_run_compiled_makes_no_host_read(workload, monkeypatch):
         with _no_host_reads(monkeypatch), \
                 pytest.raises(AssertionError, match="host read"):
             eng.run(1)
+
+
+#: MVCC configs of the compiled tick: YCSB on rings of 2 (evictions), and
+#: TPC-C at B*R = 16,896 > K = 4096, so the version insert's tail fold is
+#: a body that runs on every tick
+MVCC_CFGS = {
+    "ycsb": _kw("ycsb", "MVCC", False, his_recycle_len=2),
+    "tpcc": dict(GUARD_CFGS["tpcc"], cc_alg="MVCC", fused_arbitrate=False),
+}
+
+
+@pytest.mark.parametrize("workload", sorted(MVCC_CFGS))
+def test_mvcc_run_compiled_matches_reference(workload, monkeypatch):
+    # MVCC's compiled tick under the guard (every host read raises): the
+    # rings updated in place, equal to the reference's run_compiled and to
+    # the port's eager run, the rings, rts0, w_floor and the tail-fold
+    # counter included
+    je, tc, te = _engines(MVCC_CFGS[workload])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        js = je.run_compiled(sum(CHUNKS))
+    ts = None
+    with _no_host_reads(monkeypatch):
+        for n in CHUNKS:
+            ts = tc.run_compiled(n, ts)
+    es = _run(te.run, CHUNKS)
+    s = _assert_same(je, js, tc, ts)
+    _assert_same(te, es, tc, ts)
+    assert s["txn_cnt"] > 0
+    t_mv.assert_mvcc_equal(tc.cfg, js.db, ts.db)
+    for k in ts.db:
+        assert torch.equal(es.db[k], ts.db[k]), k
 
 
 def test_unbounded_effect_chain_reads_the_host(monkeypatch):

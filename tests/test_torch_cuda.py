@@ -344,6 +344,45 @@ def test_timestamp_pack_matches_plain_in_one_launch(dev):
     _assert_one_device_launch(lambda: fused.fused_sort_scan(cols, 2))
 
 
+@pytest.mark.parametrize("workload", sorted(WAIT_DIE_CFGS))
+def test_mvcc_engine_cuda_matches_cpu(dev, workload):
+    # MVCC: the decision and version-insert packs on the kernel, the rings
+    # set by index_copy_ at distinct cells and the read ts raised by
+    # scatter-max (order-free), the rebase in two launches
+    cfg = Config(cc_alg="MVCC", fused_arbitrate=True, his_recycle_len=2,
+                 **WAIT_DIE_CFGS[workload])
+    gpu = Engine(cfg, device=dev)
+    cpu = Engine(cfg, pool=gpu.pool, device="cpu")
+    sg, sc = gpu.run(60), cpu.run(60)
+    s = gpu.summary(sg)
+    assert s == cpu.summary(sc)
+    assert s["txn_cnt"] > 0
+    assert torch.equal(sg.data.cpu(), sc.data)
+    for k in sc.tables:
+        assert torch.equal(sg.tables[k].cpu(), sc.tables[k]), k
+    assert sorted(sg.db) == sorted(sc.db)
+    for k in sc.db:
+        assert torch.equal(sg.db[k].cpu(), sc.db[k]), k
+
+
+@pytest.mark.parametrize("n", [81_920, 172_032, 270_336])
+def test_mvcc_version_insert_pack_matches_plain_in_one_launch(dev, n):
+    # (key, BIG_TS - ts, ts, committed write) by 2 keys at each cell's
+    # B*R: a quarter of the lanes committed writes on hot rows, the rest
+    # keyed INT32_MAX
+    rng = np.random.default_rng(n)
+    live = rng.random(n) < 0.25
+    ts = np.repeat(rng.integers(1, 1 << 20, n // 10 + 1), 10)[:n]
+    cols = [np.where(live, rng.integers(0, 4096, n), 2**31 - 1),
+            2**31 - 1 - ts, ts]
+    cols = [torch.from_numpy(c.astype(np.int32)).to(dev) for c in cols]
+    _check(cols + [torch.from_numpy(live).to(dev)], 2)
+    # the kernel alone: the wrapper widens a bool column to int32 and
+    # narrows it back, two elementwise launches of its own
+    cols.append(torch.from_numpy(live.astype(np.int32)).to(dev))
+    _assert_one_device_launch(lambda: fused.fused_sort_scan(cols, 2))
+
+
 def test_ordered_index_cuda_matches_cpu(dev):
     rng = np.random.default_rng(3)
     keys = np.unique(rng.integers(0, 10_000, 500))
@@ -384,7 +423,7 @@ def _assert_same_run(eng, a, b):
     assert int(a.tick) == int(b.tick) == a.host_tick == b.host_tick
 
 
-@pytest.mark.parametrize("cc", ["NO_WAIT", "WAIT_DIE", "TIMESTAMP"])
+@pytest.mark.parametrize("cc", ["NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC"])
 @pytest.mark.parametrize("workload", sorted(GRAPH_CFGS))
 def test_graph_replay_matches_eager(dev, workload, cc):
     # 40 ticks: eager, then replayed from the initial state in two calls
@@ -402,9 +441,10 @@ def test_graph_replay_matches_eager(dev, workload, cc):
     assert eng.summary(sg)["txn_cnt"] > 0
     assert {k: c1[k] - c0[k] for k in c0} == {k: c2[k] - c1[k] for k in c0}
     # launches counted at capture only: the warm-up's 3 ticks and the 3
-    # phase graphs, not the 40 replays
+    # phase graphs, not the 40 replays; MVCC adds its version insert
     per_tick = sum(eng.graphs.launches[0].values())
-    assert per_tick == {"ycsb": 2, "tpcc": 7, "pps": 3}[workload]
+    assert per_tick == {"ycsb": 2, "tpcc": 7, "pps": 3}[workload] \
+        + (cc == "MVCC")
     assert fused.LAUNCHES == 6 * per_tick
     # a replayed tick never syncs the host
     torch.cuda.set_sync_debug_mode("error")
@@ -452,9 +492,23 @@ def test_rebase_kernel_matches_plain(dev, n, shift):
     want = [x.clone() for x in (a, b)]
     s = torch.tensor(shift, dtype=torch.int64, device=dev)
     rebase.rebase_plain(*want, s)
-    before = rebase.LAUNCHES
+    before = rebase.LAUNCHES.get("plain", 0)
     rebase.rebase_(a, b, s)
-    assert rebase.LAUNCHES == before + 1
+    assert rebase.LAUNCHES["plain"] == before + 1
+    assert torch.equal(a, want[0]) and torch.equal(b, want[1])
+
+
+@pytest.mark.parametrize("n", [1, 5, 4096, 1_000_003])
+@pytest.mark.parametrize("shift", [0, 1, 2**30])
+def test_rebase_kernel_ring_mode_matches_plain(dev, n, shift):
+    # MVCC's ring rule: empty slots (0) stay 0, versions stay >= 1
+    a, b = _rebase_arrays(dev, n, 7 * n + shift)
+    want = [x.clone() for x in (a, b)]
+    s = torch.tensor(shift, dtype=torch.int64, device=dev)
+    rebase.rebase_plain(*want, s, ring=True)
+    before = rebase.LAUNCHES.get("ring", 0)
+    rebase.rebase_(a, b, s, ring=True)
+    assert rebase.LAUNCHES["ring"] == before + 1
     assert torch.equal(a, want[0]) and torch.equal(b, want[1])
 
 

@@ -89,7 +89,9 @@ def test_cpu_engine_runs():
 
 
 OUTSIDE = {
-    "mvcc": dict(cc_alg="MVCC"),
+    # MVCC's depgraph blocker plane is not ported
+    "mvcc_depgraph": dict(cc_alg="MVCC", depgraph=True,
+                          abort_attribution=True),
     # TIMESTAMP's sub-ticked path (twopl.ts_groups) is not ported
     "timestamp_sub_ticks": dict(cc_alg="TIMESTAMP", sub_ticks=2),
     "occ": dict(cc_alg="OCC"),
