@@ -71,9 +71,17 @@ Phases, each printing one line:
      captured from a tick, held bit-equal and timed; then CPU == CUDA
      under MVCC on the three workloads (see MV_CPU_TICKS), rings, rts0
      and w_floor included;
- 15. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
-     pps, pps_wait_die, headline_timestamp, tpcc_timestamp, headline_mvcc
-     and tpcc_mvcc cells: 300
+ 15. CALVIN: the headline_calvin cell as phase 4 (2 launches per tick, 0
+     host syncs and 0 cummax in a traced window, no abort), the
+     tpcc_calvin cell as phase 6 (TPC-C conservation, 1 host sync per
+     eager tick, 0 cummax, no abort; its FIFO lock sort captured from a
+     tick, held bit-equal to the plain version and timed as a row of its
+     own), the pps_calvin cell as phase 9 (PART_AMOUNT conservation, recon
+     deferrals counted, no abort), then CPU == CUDA under CALVIN on the
+     three cells (see CA_CPU_TICKS), txn slots included;
+ 16. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
+     pps, pps_wait_die, headline_timestamp, tpcc_timestamp, headline_mvcc,
+     tpcc_mvcc, headline_calvin, tpcc_calvin and pps_calvin cells: 300
      ticks eager and 300 replayed from the same initial state give equal
      summaries, data, tables, CC state (wts, rts) and effect bodies; a
      replayed tick makes 0 host syncs (sync debug mode "error");
@@ -86,7 +94,8 @@ Phases, each printing one line:
      replays run, and the peak memory of both; the packs only a captured tick sorts (the full-width
      effect body) held bit-equal to the plain version and timed.
 Then one JSON line of per-kernel numbers (one entry per pack of the sort
-kernel, and one per mode of the rebase kernel at the main path's shift of
+kernel, one for CALVIN's lock sort on tpcc_calvin, and one per mode of
+the rebase kernel at the main path's shift of
 0, with its numbers at 2^30 under ``rebase_tick``; ``launches``
 counts the wrapper's launches on the eager paths, and for a pack only the
 graph path sorts, its warm-up and capture; ``replayed_launches`` those the
@@ -134,10 +143,13 @@ TO_CPU_TICKS = (("headline_timestamp", {}, 20), ("tpcc_timestamp", {}, 20),
 #: ticks of the CPU == CUDA checks under MVCC, by cell and overrides
 MV_CPU_TICKS = (("headline_mvcc", {}, 20), ("tpcc_mvcc", {}, 20),
                 ("pps", {"cc_alg": "MVCC"}, 20))
+#: ticks of the CPU == CUDA checks under CALVIN, by cell
+CA_CPU_TICKS = (("headline_calvin", 20), ("tpcc_calvin", 20),
+                ("pps_calvin", 20))
 #: cells of the graph phase, and its ticks on each path
 GRAPH_CELLS = ("headline", "tpcc", "pps", "pps_wait_die",
                "headline_timestamp", "tpcc_timestamp", "headline_mvcc",
-               "tpcc_mvcc")
+               "tpcc_mvcc", "headline_calvin", "tpcc_calvin", "pps_calvin")
 GRAPH_TICKS = 300
 #: the packs a headline tick sorts, as (columns, keys, lanes, shift)
 PACK_NAMES = {
@@ -152,7 +164,8 @@ def access_packs(eng, prefix):
     each per tick: 2PL's lock sort (keykind, ts, payload) by 2 keys with
     the row shift, or the T/O and MVCC decision sort (key, ts, is_write,
     held, req, w_abort, lane) by 2 keys; all three are followed by the
-    unpermute, 2 columns by 1 key at the same width.  MVCC's commit adds
+    unpermute, 2 columns by 1 key at the same width.  CALVIN's FIFO lock
+    sort is 2PL's pack.  MVCC's commit adds
     its version insert (key, BIG_TS - ts, ts, committed write) by 2 keys."""
     N = eng.cfg.batch_size * eng.pool.max_req
     if eng.plugin.name in ("TIMESTAMP", "MVCC"):
@@ -1044,6 +1057,80 @@ def phase_mvcc(cells, Engine, timed_run, fused, rebase, dev, rows, names,
     return reb
 
 
+def phase_calvin(cells, Engine, timed_run, fused, dev, pps_pool):
+    """CALVIN on the card (phase 15 of the module docstring).  Returns the
+    record of its lock sort on tpcc_calvin (``measure_pack``) with its
+    launches on that cell's timed ticks."""
+    from deneva_tpu_torch.workloads import pps, tpcc
+
+    def no_abort(name, s):
+        if s["total_txn_abort_cnt"] or s["unique_txn_abort_cnt"]:
+            raise AssertionError(f"the {name} run aborted: CALVIN never "
+                                 "aborts")
+
+    def no_cummax(name, per):
+        if per["cummax_launches"]:
+            raise AssertionError(f"the {name} tick runs torch.cummax")
+
+    eng, state, _, rebase_launches = phase_headline(
+        cells, Engine, timed_run, fused, dev, "headline_calvin")
+    if rebase_launches:
+        raise AssertionError(f"CALVIN launched the rebase kernel: "
+                             f"{rebase_launches}")
+    s = eng.summary(state)
+    # phase_trace checked 2 launches, no host sync and no cummax per tick
+    no_abort("headline_calvin", s)
+    say("headline_calvin", f"total_txn_abort_cnt=0 twopl_wait_cnt="
+        f"{s['twopl_wait_cnt']}")
+    del eng, state
+
+    eng, state, init, rec = run_effect_cell(
+        cells, "tpcc_calvin", Engine, timed_run, fused, dev, tpcc_packs,
+        TPCC_TICKS, tpcc.checksums)
+    payments, neworders, laws = check_tpcc_conservation(
+        tpcc, eng.cfg, init, state.tables, rec["s"])
+    say("tpcc_calvin", f"conservation holds ({', '.join(laws)}): "
+        f"{payments} Payments, {neworders} NewOrders")
+    # the one host read of an eager tick (its compact/full choice)
+    packs, per = trace_cell("tpcc_calvin", eng, state, fused, 1,
+                            ("base.py",))
+    no_abort("tpcc_calvin", rec["s"])
+    no_cummax("tpcc_calvin", per)
+    lock = (3, 2, eng.cfg.batch_size * eng.pool.max_req, 1)
+    row = measure_pack(fused, "tpcc_calvin lock sort", packs[lock], 2, 1)
+    row.update(pack=lock, launches=rec["by_pack"][lock])
+    del eng, state
+
+    eng, state, amount0, rec = run_effect_cell(
+        cells, "pps_calvin", Engine, timed_run, fused, dev, pps_packs,
+        PPS_TICKS, part_amount_sum)
+    orders, upd = check_pps_conservation(pps, eng.cfg, eng.pool, amount0,
+                                         state)
+    s = rec["s"]
+    say("pps_calvin", f"PART_AMOUNT conserved: {orders} ORDERPRODUCT part "
+        f"writes, {upd} UPDATEPART commits; recon_cnt={s['recon_cnt']}")
+    if not (orders > 0 and s["recon_cnt"] > 0):
+        raise AssertionError("the pps_calvin run deferred no recon txn or "
+                             "committed no ORDERPRODUCT")
+    _, per = trace_cell("pps_calvin", eng, state, fused, 1, ("base.py",))
+    no_abort("pps_calvin", s)
+    no_cummax("pps_calvin", per)
+    del eng, state
+
+    for name, ticks in CA_CPU_TICKS:
+        _, _, sc, gpu, sg = phase_cpu_equal(
+            cells, name, Engine, dev, ticks,
+            pool=pps_pool if name == "pps_calvin" else None)
+        bad = [f for f in sc.txn._fields
+               if not torch.equal(getattr(sg.txn, f).cpu(),
+                                  getattr(sc.txn, f))]
+        if bad:
+            raise AssertionError(f"{name}: CUDA and CPU txn slots differ: "
+                                 f"{bad}")
+        del sc, gpu, sg
+    return row
+
+
 def graph_packs(eng):
     """The names of the packs the cell's tick sorts, by (columns, keys,
     lanes, shift), and the launches of each per tick on the eager path
@@ -1307,6 +1394,7 @@ def main() -> int:
                           rows, names, by_pack, pps_pool)
     reb_ring = phase_mvcc(cells, Engine, timed_run, fused, rebase, dev,
                           rows, names, by_pack, pps_pool)
+    calvin = phase_calvin(cells, Engine, timed_run, fused, dev, pps_pool)
 
     gpu_line = phase_gpu()
     replayed = {}
@@ -1322,24 +1410,32 @@ def main() -> int:
         by_pack.update({p: rec["counted"][p] for p in new})
         for p, n in rec["replayed"].items():
             replayed[p] = replayed.get(p, 0) + n
+        if name == "tpcc_calvin":
+            calvin["replayed"] = rec["replayed"].get(calvin["pack"], 0)
 
-    kernels = []
-    for pack, r in sorted(rows.items(), key=lambda kv: names[kv[0]]):
+    def sort_row(label, pack, r, launches, replayed_launches):
         n_in, nk, n, shift = pack
-        kernels.append({
-            "name": f"fused_sort_scan[{names[pack]} {n_in}x{nk} n={n}"
+        return {
+            "name": f"fused_sort_scan[{label} {n_in}x{nk} n={n}"
                     f" shift={shift}]",
             "route": "cuda",
             "source": "deneva_tpu_torch/csrc/fused_sort_scan.cu",
             "replaces": "deneva_tpu/ops/fused.py:122",
-            "launches": by_pack.get(pack, 0),
-            "replayed_launches": replayed.get(pack, 0),
+            "launches": launches,
+            "replayed_launches": replayed_launches,
             "device_launches_per_call": r["device_launches"],
             "device_ms": r["device_ms"],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+        }
+
+    kernels = [sort_row(names[pack], pack, r, by_pack.get(pack, 0),
+                        replayed.get(pack, 0))
+               for pack, r in sorted(rows.items(),
+                                     key=lambda kv: names[kv[0]])]
+    kernels.append(sort_row("tpcc_calvin lock sort", calvin["pack"], calvin,
+                            calvin["launches"], calvin["replayed"]))
     for rec, what, replaces in (
             (reb, "wts+rts", "deneva_tpu/cc/timestamp.py:119"),
             (reb_ring, "w_ring+r_ring, ring mode",

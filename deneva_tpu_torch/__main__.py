@@ -4,6 +4,7 @@
     python -m deneva_tpu_torch --cell tpcc --device cuda --compiled
     python -m deneva_tpu_torch --cell tpcc_timestamp --device cuda --compiled
     python -m deneva_tpu_torch --cell headline_mvcc --device cuda --compiled
+    python -m deneva_tpu_torch --cell pps_calvin --device cuda --compiled
 
 Runs 20 warm-up ticks, then ``--ticks`` timed ticks, and prints the
 ``[summary]`` line, commits per tick, and the tick time: from CUDA events

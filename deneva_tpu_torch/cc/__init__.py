@@ -1,7 +1,8 @@
 """CC-algorithm registry (the reference's CC_ALG compile switch).  The
-port carries NO_WAIT, WAIT_DIE, TIMESTAMP and MVCC so far."""
+port carries NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC and CALVIN so far."""
 
 from deneva_tpu_torch.cc.base import AccessDecision, CCPlugin
+from deneva_tpu_torch.cc.calvin import Calvin
 from deneva_tpu_torch.cc.mvcc import Mvcc
 from deneva_tpu_torch.cc.no_wait import NoWait, WaitDie
 from deneva_tpu_torch.cc.timestamp import Timestamp
@@ -18,6 +19,7 @@ register(NoWait())
 register(WaitDie())
 register(Timestamp())
 register(Mvcc())
+register(Calvin())
 
 
 def get(name: str) -> CCPlugin:

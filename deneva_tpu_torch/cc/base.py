@@ -91,6 +91,14 @@ class CCPlugin:
     name: str = "?"
     #: re-draw a timestamp on every restart (worker_thread.cpp:492-495)
     new_ts_on_restart: bool = False
+    #: admit at most ``cfg.epoch_size`` fresh txns per tick, the
+    #: sequencer's batch release (sequencer.cpp:283-326)
+    epoch_admission: bool = False
+    #: request the whole access set every tick (TxnManager::acquire_locks,
+    #: ycsb_txn.cpp:49-88) instead of the cursor window
+    request_all: bool = False
+    #: no abort path exists (row_lock.cpp:78-81)
+    never_aborts: bool = False
     #: registered reasons this plugin's access decisions can carry
     access_abort_reasons: tuple[str, ...] = ()
 

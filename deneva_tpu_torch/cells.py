@@ -35,6 +35,14 @@
   ``rts0`` and ``w_floor`` add 1.21 GB on the card.
 - ``tpcc_mvcc``: the ``tpcc`` cell under MVCC, nothing cut (1.21 GB of
   version state over its 16.74M catalog rows).
+- ``headline_calvin``: the ``headline`` cell under CALVIN.  It keeps no
+  per-row CC state, so it takes the headline's memory; ``seq_batch_size``
+  stays None (the epoch is B = 8192 txns), so the admission cap of 1024
+  is the binding cap per tick.
+- ``tpcc_calvin``: the ``tpcc`` cell under CALVIN, nothing cut: its 128
+  warehouse rows are FIFO queues under Payment's ``wh_update``.
+- ``pps_calvin``: the ``pps`` cell under CALVIN, the cell that runs PPS's
+  reconnaissance deferral and its read-only shadow requests.
 """
 
 from __future__ import annotations
@@ -64,6 +72,9 @@ CELLS["headline_timestamp"] = dict(CELLS["headline"], cc_alg="TIMESTAMP")
 CELLS["tpcc_timestamp"] = dict(CELLS["tpcc"], cc_alg="TIMESTAMP")
 CELLS["headline_mvcc"] = dict(CELLS["headline"], cc_alg="MVCC")
 CELLS["tpcc_mvcc"] = dict(CELLS["tpcc"], cc_alg="MVCC")
+CELLS["headline_calvin"] = dict(CELLS["headline"], cc_alg="CALVIN")
+CELLS["tpcc_calvin"] = dict(CELLS["tpcc"], cc_alg="CALVIN")
+CELLS["pps_calvin"] = dict(CELLS["pps"], cc_alg="CALVIN")
 
 
 def config(name: str, **overrides) -> Config:

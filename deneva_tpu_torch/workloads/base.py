@@ -114,6 +114,9 @@ class WorkloadPlugin:
     has_effects = False
     #: names of the per-entry int32 fields ``commit_fields`` returns
     effect_fields: tuple = ()
+    #: txn types that Calvin's sequencer sends through reconnaissance
+    #: first (sequencer.cpp:88-114): admitted one epoch late
+    recon_types: tuple = ()
     #: the port's own device counters (outside the engine's stats and
     #: tables, which are held equal to the reference's): the effect bodies
     #: taken, "compact" and "full", and workload-specific ones

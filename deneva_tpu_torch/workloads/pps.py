@@ -26,8 +26,11 @@ loop (pps_txn.cpp:485-630):
   + 100, run_updatepart_1).
 
 The JAX package's documented divergences carry over: chain footprints are
-resolved against the loader's USES mapping, and CALVIN's reconnaissance
-pass is not part of this slice (the engine refuses CALVIN).
+resolved against the loader's USES mapping.  Under CALVIN the types that
+walk a chain (GETPARTBYSUPPLIER, GETPARTBYPRODUCT, ORDERPRODUCT) take the
+reconnaissance pass (``recon_types``): admitted one epoch late, their
+footprint shipped read-only in the meantime (``engine/scheduler.py``
+``recon_defer``).
 
 Commit effects run as in TPC-C (``workloads/tpcc.py``): when B*R > K, one
 sort by ``(cts, lane)`` puts the effect entries in a K-lane prefix and the
@@ -116,6 +119,8 @@ class PPSWorkload(WorkloadPlugin):
     name = "PPS"
     has_effects = True
     effect_fields = ("role", "earg")
+    recon_types = (PPS_GETPARTBYSUPPLIER, PPS_GETPARTBYPRODUCT,
+                   PPS_ORDERPRODUCT)
     #: the effect bodies taken
     counter_names = ("compact", "full")
 

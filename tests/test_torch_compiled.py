@@ -241,6 +241,37 @@ def test_mvcc_run_compiled_matches_reference(workload, monkeypatch):
         assert torch.equal(es.db[k], ts.db[k]), k
 
 
+#: CALVIN configs of the compiled tick: contended YCSB, TPC-C and PPS at
+#: B*R > K; PPS's recon txns sleep one epoch while their read-only shadow
+#: requests take part in the arbitration
+CALVIN_CFGS = {
+    "ycsb": _kw("ycsb", "CALVIN", False),
+    "tpcc": dict(GUARD_CFGS["tpcc"], cc_alg="CALVIN", fused_arbitrate=False),
+    "pps": dict(GUARD_CFGS["pps"], cc_alg="CALVIN", fused_arbitrate=False),
+}
+
+
+@pytest.mark.parametrize("workload", sorted(CALVIN_CFGS))
+def test_calvin_run_compiled_matches_reference(workload, monkeypatch):
+    # CALVIN's compiled tick under the guard (every host read raises): the
+    # epoch gate and the recon deferral on the device, equal to the
+    # reference's run_compiled and to the port's eager run
+    je, tc, te = _engines(CALVIN_CFGS[workload])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        js = je.run_compiled(sum(CHUNKS))
+    ts = None
+    with _no_host_reads(monkeypatch):
+        for n in CHUNKS:
+            ts = tc.run_compiled(n, ts)
+    es = _run(te.run, CHUNKS)
+    s = _assert_same(je, js, tc, ts)
+    _assert_same(te, es, tc, ts)
+    assert s["txn_cnt"] > 0 and s["total_txn_abort_cnt"] == 0
+    assert s["twopl_wait_cnt"] > 0
+    assert (s["recon_cnt"] > 0) == (workload == "pps")
+
+
 def test_unbounded_effect_chain_reads_the_host(monkeypatch):
     # TIMESTAMP bounds no committers of one STOCK row per tick, and on this
     # config the restock chain runs deeper than 1.  Only the eager tick

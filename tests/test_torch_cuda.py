@@ -365,6 +365,30 @@ def test_mvcc_engine_cuda_matches_cpu(dev, workload):
         assert torch.equal(sg.db[k].cpu(), sc.db[k]), k
 
 
+@pytest.mark.parametrize("workload", sorted(WAIT_DIE_CFGS))
+def test_calvin_engine_cuda_matches_cpu(dev, workload):
+    # CALVIN: the FIFO lock sort and the unpermute on the kernel, the epoch
+    # gate and, on PPS, the recon deferral with its shadow requests
+    cfg = Config(cc_alg="CALVIN", fused_arbitrate=True,
+                 **WAIT_DIE_CFGS[workload])
+    gpu = Engine(cfg, device=dev)
+    cpu = Engine(cfg, pool=gpu.pool, device="cpu")
+    fused.reset_launches()
+    sg, sc = gpu.run(60), cpu.run(60)
+    s = gpu.summary(sg)
+    assert s == cpu.summary(sc)
+    assert s["txn_cnt"] > 0 and s["twopl_wait_cnt"] > 0
+    assert s["total_txn_abort_cnt"] == 0
+    assert (s["recon_cnt"] > 0) == (workload == "pps")
+    assert fused.LAUNCHES_BY_PACK[(3, 2, cfg.batch_size * gpu.pool.max_req,
+                                   1)] == 60
+    assert torch.equal(sg.data.cpu(), sc.data)
+    for k in sc.tables:
+        assert torch.equal(sg.tables[k].cpu(), sc.tables[k]), k
+    for f in sc.txn._fields:
+        assert torch.equal(getattr(sg.txn, f).cpu(), getattr(sc.txn, f)), f
+
+
 @pytest.mark.parametrize("n", [81_920, 172_032, 270_336])
 def test_mvcc_version_insert_pack_matches_plain_in_one_launch(dev, n):
     # (key, BIG_TS - ts, ts, committed write) by 2 keys at each cell's
@@ -423,7 +447,8 @@ def _assert_same_run(eng, a, b):
     assert int(a.tick) == int(b.tick) == a.host_tick == b.host_tick
 
 
-@pytest.mark.parametrize("cc", ["NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC"])
+@pytest.mark.parametrize("cc", ["NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC",
+                                "CALVIN"])
 @pytest.mark.parametrize("workload", sorted(GRAPH_CFGS))
 def test_graph_replay_matches_eager(dev, workload, cc):
     # 40 ticks: eager, then replayed from the initial state in two calls

@@ -34,6 +34,7 @@ MODULES = (
     "deneva_tpu_torch.cc", "deneva_tpu_torch.cc.base",
     "deneva_tpu_torch.cc.compact", "deneva_tpu_torch.cc.twopl",
     "deneva_tpu_torch.cc.no_wait", "deneva_tpu_torch.cc.timestamp",
+    "deneva_tpu_torch.cc.calvin",
     "deneva_tpu_torch.profile_tick",
     "chip_smoke",
 )
@@ -92,6 +93,11 @@ OUTSIDE = {
     # MVCC's depgraph blocker plane is not ported
     "mvcc_depgraph": dict(cc_alg="MVCC", depgraph=True,
                           abort_attribution=True),
+    # CALVIN's depgraph blocker plane is not ported
+    "calvin_depgraph": dict(cc_alg="CALVIN", depgraph=True,
+                            abort_attribution=True),
+    # nor is the sharded CALVIN (its epoch log and forwarding exchange)
+    "calvin_multi_partition": dict(cc_alg="CALVIN", part_cnt=2),
     # TIMESTAMP's sub-ticked path (twopl.ts_groups) is not ported
     "timestamp_sub_ticks": dict(cc_alg="TIMESTAMP", sub_ticks=2),
     "occ": dict(cc_alg="OCC"),
