@@ -18,8 +18,8 @@ and workers that run a txn once all its locks are granted.  Batched:
   walks the batch's conflict graph frontier by frontier.
 
 PPS's reconnaissance deferral lives in the engine (``recon_defer`` in
-``engine/scheduler.py``).  The depgraph blocker plane raises
-(``check_slice`` refuses it first).
+``engine/scheduler.py``).  ``check_slice`` refuses the depgraph blocker
+plane.
 """
 
 from __future__ import annotations
@@ -38,17 +38,14 @@ class Calvin(CCPlugin):
     never_aborts = True      # row_lock.cpp:78-81
 
     def access(self, cfg: Config, db: dict, txn: TxnState, active):
-        if cfg.depgraph:
-            raise NotImplementedError(
-                "CALVIN's depgraph blocker plane is not ported")
         B, R = txn.keys.shape
         # locks are held from grant to commit whatever the isolation level
         # (system/txn.cpp:778-788); every access is requested every tick
         ent = make_entries(txn, active, read_locks_held=True, window=R)
         db, ac = ccompact.compact_access(cfg, db, ent, B, R,
-                                         request_all=True)
+                                         request_all=self.request_all)
         g, w, a = twopl.arbitrate(ac.ent, "CALVIN")
         g, w, a = ccompact.finish_access(ac, ent.req, g, w, a,
-                                         never_aborts=True)
+                                         never_aborts=self.never_aborts)
         return AccessDecision(grant=g.reshape(B, R), wait=w.reshape(B, R),
                               abort=a.reshape(B, R)), db
