@@ -4,8 +4,8 @@
 
 Phases, each printing one line:
   1. the card's name and power limit (nvidia-smi);
-  2. the build of the kernels (csrc/fused_sort_scan.cu and
-     csrc/ts_rebase.cu), one nvcc each, started together;
+  2. the build of the kernels (csrc/fused_sort_scan.cu, csrc/ts_rebase.cu
+     and csrc/graph_while.cu), one nvcc each, started together;
   3. the kernel against its plain PyTorch version on the card, bit-equal,
      on the unit shape set and on both main-path packs, with the key shift
      of 0 and of 1, with times, its launch plan (blocks, tile, merge
@@ -79,9 +79,25 @@ Phases, each printing one line:
      own), the pps_calvin cell as phase 9 (PART_AMOUNT conservation, recon
      deferrals counted, no abort), then CPU == CUDA under CALVIN on the
      three cells (see CA_CPU_TICKS), txn slots included;
- 16. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
+ 16. OCC: the headline_occ cell as phase 4 (1 launch per tick, the
+     validation sort; 0 cummax; one host sync per pass of the fixed point
+     and none else; vabort_cnt = occ_hist_abort_cnt + occ_active_abort_cnt;
+     the passes per tick), the tpcc_occ cell as phase 6 (TPC-C
+     conservation, passes + 1 host syncs per eager tick) and the pps_occ
+     cell as phase 9 (PART_AMOUNT conservation); each cell's validation
+     sort captured from a tick, held bit-equal to the plain version and
+     timed as a row of its own; one pass of the fixed point's body timed
+     (CUDA events, in a plain graph and eager); CPU == CUDA under OCC on
+     the three cells (see OC_CPU_TICKS), txn slots and passes included;
+     the forced chain (``occ_chain``: OC_CHAIN txns finishing in one tick)
+     on the CPU, eager on CUDA and replayed: OC_CHAIN passes, OC_CHAIN / 2
+     commits, no host sync in the replay; the WHILE node on a bare loop:
+     exact pass counts up to 1,000 from one graph, its time per pass
+     against the same kernels in a plain graph and against the host loop;
+ 17. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
      pps, pps_wait_die, headline_timestamp, tpcc_timestamp, headline_mvcc,
-     tpcc_mvcc, headline_calvin, tpcc_calvin and pps_calvin cells: 300
+     tpcc_mvcc, headline_calvin, tpcc_calvin, pps_calvin, headline_occ,
+     tpcc_occ and pps_occ cells: 300
      ticks eager and 300 replayed from the same initial state give equal
      summaries, data, tables, CC state (wts, rts) and effect bodies; a
      replayed tick makes 0 host syncs (sync debug mode "error");
@@ -92,11 +108,17 @@ Phases, each printing one line:
      card's name and power limit, every window, the replay windows once
      more after the trace, the SM clock nvidia-smi samples while the
      replays run, and the peak memory of both; the packs only a captured tick sorts (the full-width
-     effect body) held bit-equal to the plain version and timed.
+     effect body) held bit-equal to the plain version and timed; on the
+     OCC cells, the fixed point's passes of the 300 replayed ticks equal
+     the eager ticks', and OC_PASS_TICKS ticks eager and replayed from
+     the start run equal passes tick by tick (their histogram printed).
 Then one JSON line of per-kernel numbers (one entry per pack of the sort
-kernel, one for CALVIN's lock sort on tpcc_calvin, and one per mode of
-the rebase kernel at the main path's shift of
-0, with its numbers at 2^30 under ``rebase_tick``; ``launches``
+kernel, one for CALVIN's lock sort on tpcc_calvin, one for each OCC
+cell's validation sort, one per mode of the rebase kernel at the main
+path's shift of 0, with its numbers at 2^30 under ``rebase_tick``, and
+one for the WHILE node, whose launches are the captures of its
+set-condition kernel on the OCC cells' graph path and whose replayed
+launches are the passes those replays ran; ``launches``
 counts the wrapper's launches on the eager paths, and for a pack only the
 graph path sorts, its warm-up and capture; ``replayed_launches`` those the
 graph replays ran) and the final
@@ -146,10 +168,18 @@ MV_CPU_TICKS = (("headline_mvcc", {}, 20), ("tpcc_mvcc", {}, 20),
 #: ticks of the CPU == CUDA checks under CALVIN, by cell
 CA_CPU_TICKS = (("headline_calvin", 20), ("tpcc_calvin", 20),
                 ("pps_calvin", 20))
+#: ticks of the CPU == CUDA checks under OCC, by cell
+OC_CPU_TICKS = (("headline_occ", 20), ("tpcc_occ", 20), ("pps_occ", 20))
+#: the forced chain of OCC txns finishing in one tick (``occ_chain``)
+OC_CHAIN = 40
+#: OCC cells: ticks whose fixed-point passes are held equal one by one,
+#: eager against replayed
+OC_PASS_TICKS = 100
 #: cells of the graph phase, and its ticks on each path
 GRAPH_CELLS = ("headline", "tpcc", "pps", "pps_wait_die",
                "headline_timestamp", "tpcc_timestamp", "headline_mvcc",
-               "tpcc_mvcc", "headline_calvin", "tpcc_calvin", "pps_calvin")
+               "tpcc_mvcc", "headline_calvin", "tpcc_calvin", "pps_calvin",
+               "headline_occ", "tpcc_occ", "pps_occ")
 GRAPH_TICKS = 300
 #: the packs a headline tick sorts, as (columns, keys, lanes, shift)
 PACK_NAMES = {
@@ -163,16 +193,22 @@ def access_packs(eng, prefix):
     (columns, keys, lanes, shift), with their names, and the launches of
     each per tick: 2PL's lock sort (keykind, ts, payload) by 2 keys with
     the row shift, or the T/O and MVCC decision sort (key, ts, is_write,
-    held, req, w_abort, lane) by 2 keys; all three are followed by the
+    held, req, w_abort, lane) by 2 keys; both are followed by the
     unpermute, 2 columns by 1 key at the same width.  CALVIN's FIFO lock
     sort is 2PL's pack.  MVCC's commit adds
-    its version insert (key, BIG_TS - ts, ts, committed write) by 2 keys."""
+    its version insert (key, BIG_TS - ts, ts, committed write) by 2 keys.
+    OCC sorts once, to validate: (key, ts, is_write, txn) by 2 keys, with
+    no unpermute (its access grants every request and sorts nothing)."""
     N = eng.cfg.batch_size * eng.pool.max_req
+    if eng.plugin.name == "OCC":
+        pack = (4, 2, N, 0)
+        return {pack: f"{prefix} OCC validation sort"}, {pack: 1}
     if eng.plugin.name in ("TIMESTAMP", "MVCC"):
         pack, name = (7, 2, N, 0), "T/O and MVCC decision sort"
     else:
         pack, name = (3, 2, N, 1), "lock sort"
-    names, every = {pack: f"{prefix} {name}"}, {pack: 1}
+    names = {pack: f"{prefix} {name}", (2, 1, N, 0): f"{prefix} unpermute"}
+    every = {pack: 1, (2, 1, N, 0): 1}
     if eng.plugin.name == "MVCC":
         names[(4, 2, N, 0)] = f"{prefix} MVCC version insert"
         every[(4, 2, N, 0)] = 1
@@ -198,11 +234,12 @@ def tpcc_packs(eng):
         (2, 1, K, 0): "tpcc ring appends",
         (3, 2, N, 0): "tpcc restock chain, full width",
     }
-    every.update({(2, 1, N, 0): 1, (2, 1, B, 0): 1})
+    every[(2, 1, B, 0)] = 1
     compact = dict(every)
     compact.update({(8, 2, N, 0): 1, (3, 2, K, 0): 1, (2, 1, K, 0): 3})
     full = dict(every)
-    full.update({(3, 2, N, 0): 1, (2, 1, N, 0): 4})
+    full.update({(3, 2, N, 0): 1, (2, 1, N, 0): every.get((2, 1, N, 0), 0)
+                 + 3})
     return names, compact, full
 
 
@@ -221,12 +258,31 @@ def pps_packs(eng):
         (3, 2, K, 0): "pps USES last-writer-wins",
         (3, 2, N, 0): "pps USES last-writer-wins, full width",
     }
-    every[(2, 1, N, 0)] = 1
     compact = dict(every)
     compact.update({(6, 1, N, 0): 1, (3, 2, K, 0): 1})
     full = dict(every)
     full.update({(3, 2, N, 0): 1})
     return names, compact, full
+
+
+def occ_chain(n: int):
+    """A config and a hand-made pool of `n` txns that all finish in tick 2,
+    in ts order, txn i reading the row txn i-1 writes (txn 0 reads a row
+    nobody writes).  OCC's active-writer fixed point alternates down the
+    chain: it takes n passes, and the even txns commit (n/2 for even n)."""
+    from deneva_tpu_torch.workloads.base import QueryPool
+    keys = np.stack([np.r_[n + 10, np.arange(n - 1)], np.arange(n)],
+                    1).astype(np.int32)
+    iw = np.zeros_like(keys, bool)
+    iw[:, 1] = True
+    pool = QueryPool(keys=keys, is_write=iw, n_req=np.full(n, 2, np.int32),
+                     home_part=np.zeros(n, np.int32),
+                     txn_type=np.zeros(n, np.int32),
+                     args=np.zeros((n, 1), np.int32))
+    kw = dict(cc_alg="OCC", batch_size=n, synth_table_size=2 * n + 16,
+              req_per_query=2, query_pool_size=n, warmup_ticks=0,
+              backoff=False)
+    return kw, pool
 
 
 def say(phase: str, msg: str) -> None:
@@ -342,11 +398,13 @@ def phase_gpu():
 
 
 def phase_build(fused, rebase):
-    from deneva_tpu_torch.ops import cuda_build
+    from deneva_tpu_torch.ops import cuda_build, device_loop
     t0 = time.perf_counter()
-    recs = cuda_build.build_all(("fused_sort_scan", "ts_rebase"))
+    recs = cuda_build.build_all(("fused_sort_scan", "ts_rebase",
+                                 "graph_while"))
     fused.build()
     rebase.build()
+    device_loop.build()
     wall = time.perf_counter() - t0
     for name, rec in recs.items():
         say("build", f"{name} built={rec['built']} nvcc_s="
@@ -354,8 +412,8 @@ def phase_build(fused, rebase):
         for line in rec["ptxas"].splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print("  ptxas: " + line.strip())
-    say("build", f"both kernels built and loaded in {wall:.2f} s (one nvcc "
-        "each, started together)")
+    say("build", f"the three sources built and loaded in {wall:.2f} s (one "
+        "nvcc each, started together)")
 
 
 def phase_kernel(fused, dev):
@@ -444,13 +502,42 @@ def measure_pack(fused, name, cols, nk, shift):
                 bound_ms=bms, bound_by=by)
 
 
+def loop_passes(eng) -> int:
+    """The passes OCC's fixed point has run on the engine's device since
+    the counters were last reset (0 for a plugin with no device loop)."""
+    from deneva_tpu_torch.cc.occ import LOOP_SITE
+    from deneva_tpu_torch.ops import device_loop
+    if not eng.plugin.runs_device_loop:
+        return 0
+    return int(device_loop.passes(LOOP_SITE, eng.device).item())
+
+
+def loop_syncs(eng, tick, n_ticks, want_other, other_files):
+    """Host syncs of `n_ticks` calls of `tick` (CUDA sync debug mode): the
+    flag reads of the fixed point's host loop (one per pass, at
+    ``device_loop.py``) plus `want_other` per tick at lines of
+    `other_files`; raises on any other count or site.  Returns the syncs
+    and passes per tick and the sites."""
+    from deneva_tpu_torch.profile_tick import host_syncs
+    p0 = loop_passes(eng)
+    syncs, sites = host_syncs(tick, n_ticks)
+    passes = (loop_passes(eng) - p0) / n_ticks
+    files = tuple(other_files) + (("device_loop.py",) if passes else ())
+    if round(syncs, 6) != round(passes + want_other, 6) or not all(
+            k.split(":")[0] in files for k in sites):
+        raise AssertionError(f"expected {want_other} host reads per tick "
+                             f"and {passes} fixed-point flag reads, saw "
+                             f"{syncs} at {sites}")
+    return syncs, passes, sites
+
+
 def phase_trace(eng, state, name="headline", per_tick=2):
     """A torch.profiler trace of TRACE_TICKS ticks of a YCSB cell: the
     kernel's device launches per tick (`per_tick`) and the cummax kernels
     left in the tick; then the same ticks under the CUDA sync debug mode:
-    no host sync.  Returns the state after them."""
-    from deneva_tpu_torch.profile_tick import (breakdown, host_syncs,
-                                               trace_kernels)
+    no host sync, but for one flag read per pass of OCC's fixed point.
+    Returns the state after them."""
+    from deneva_tpu_torch.profile_tick import breakdown, trace_kernels
     box = [state]
 
     def tick():
@@ -469,18 +556,18 @@ def phase_trace(eng, state, name="headline", per_tick=2):
                              f"{per_tick}")
     if per["cummax_launches"]:
         raise AssertionError(f"the {name} tick still runs torch.cummax")
-    syncs, sites = host_syncs(tick, TRACE_TICKS)
+    syncs, passes, sites = loop_syncs(eng, tick, TRACE_TICKS, 0, ())
     say("trace", f"{TRACE_TICKS} {name} ticks (CUDA sync debug mode): "
-        f"{syncs:g} host syncs per tick")
-    if syncs:
-        raise AssertionError(f"the {name} tick syncs the host: {sites}")
+        f"{syncs:g} host syncs per tick at {sites or 'no line'} "
+        f"({passes:g} fixed-point passes per tick)")
     return box[0]
 
 
 def phase_headline(cells, Engine, timed_run, fused, dev, name="headline"):
     """The YCSB cell `name` on the card: HEADLINE_TICKS ticks in timed
-    windows, the sort kernel's launches per tick (2, or 3 under MVCC), no
-    fallback, the increment oracle and a traced window.  Returns the
+    windows, the sort kernel's launches per tick (2, 3 under MVCC, 1
+    under OCC), OCC's fixed-point passes, no fallback, the increment
+    oracle and a traced window.  Returns the
     engine, the state after the traced ticks, the sort kernel's launches
     by pack and the rebase kernel's launches by rule over the timed
     ticks."""
@@ -496,11 +583,13 @@ def phase_headline(cells, Engine, timed_run, fused, dev, name="headline"):
     fused.reset_fallbacks()
     fused.reset_launches()
     rebase.reset_launches()
+    p0 = loop_passes(eng)
     # the timed ticks in windows, each timed with CUDA events
     window_ms = []
     for _ in range(HEADLINE_TICKS // WINDOW_TICKS):
         state, per_tick = timed_run(eng, WINDOW_TICKS, state)
         window_ms.append(per_tick * 1e3)
+    passes = loop_passes(eng) - p0
     launches = fused.LAUNCHES
     by_pack = dict(fused.LAUNCHES_BY_PACK)
     rebase_launches = dict(rebase.LAUNCHES)
@@ -518,9 +607,10 @@ def phase_headline(cells, Engine, timed_run, fused, dev, name="headline"):
         f" abort_rate={s['abort_rate']:.6f} peak_mem_mb={peak / 2**20:.1f}")
     say(name, f"kernel launches={launches} by pack={by_pack} "
         f"fallbacks={snap['count']}; rebase kernel launches="
-        f"{rebase_launches}")
+        f"{rebase_launches}; fixed-point passes={passes} "
+        f"({passes / HEADLINE_TICKS:g} per tick)")
     _, every = access_packs(eng, name)
-    per_tick = sum(every.values()) + 1             # and the unpermute
+    per_tick = sum(every.values())
     if launches != per_tick * HEADLINE_TICKS:
         raise AssertionError(f"expected {per_tick * HEADLINE_TICKS} kernel "
                              f"launches, counted {launches}")
@@ -624,10 +714,12 @@ def run_effect_cell(cells, name, Engine, timed_run, fused, dev, packs_fn,
     fused.reset_fallbacks()
     fused.reset_launches()
     branch0 = dict(wl.branch_ticks)
+    p0 = loop_passes(eng)
     window_ms = []
     for _ in range(ticks // WINDOW_TICKS):
         state, per_tick = timed_run(eng, WINDOW_TICKS, state)
         window_ms.append(per_tick * 1e3)
+    passes = loop_passes(eng) - p0
     by_pack = dict(fused.LAUNCHES_BY_PACK)
     launches = fused.LAUNCHES
     snap = fused.fallback_snapshot()
@@ -648,7 +740,8 @@ def run_effect_cell(cells, name, Engine, timed_run, fused, dev, packs_fn,
     c, f = branch["compact"], branch["full"]
     say(name, f"effect bodies: compact={c} full={f} ticks; kernel launches="
         f"{launches} ({launches / ticks:g} per tick), fallbacks="
-        f"{snap['count']}")
+        f"{snap['count']}; fixed-point passes={passes} "
+        f"({passes / ticks:g} per tick)")
     for pack, cnt in sorted(by_pack.items()):
         say(name, f"  {names.get(pack, pack)} {pack}: {cnt} "
             f"launches, {cnt / ticks:g} per tick")
@@ -666,17 +759,17 @@ def run_effect_cell(cells, name, Engine, timed_run, fused, dev, packs_fn,
     if not (commits > 0 and math.isfinite(tick_ms)):
         raise AssertionError(f"the {name} run committed nothing")
     return eng, state, init, dict(s=s, by_pack=by_pack, names=names,
-                                  tick_ms=tick_ms)
+                                  tick_ms=tick_ms, passes=passes)
 
 
 def trace_cell(name, eng, state, fused, want_syncs, sync_files):
     """A traced window of the cell's ticks: the kernel's device launches
     per tick equal the wrapper's count over the same ticks; then the host
     syncs of a tick (CUDA sync debug mode) must be `want_syncs`, all at
-    lines of the files `sync_files`.  Returns the packs of one more tick, captured,
-    and the trace's per-tick numbers; flushes the state."""
-    from deneva_tpu_torch.profile_tick import (breakdown, host_syncs,
-                                               trace_kernels)
+    lines of the files `sync_files`, plus one flag read per pass of OCC's
+    fixed point.  Returns the packs of one more tick, captured, and the
+    trace's per-tick numbers; flushes the state."""
+    from deneva_tpu_torch.profile_tick import breakdown, trace_kernels
     box, per_call = [state], []
 
     def tick():
@@ -697,13 +790,12 @@ def trace_cell(name, eng, state, fused, want_syncs, sync_files):
     if per["fused_sort_scan_launches"] != counted:
         raise AssertionError("traced kernel launches per tick != the "
                              "wrapper's count")
-    syncs, sites = host_syncs(tick, TRACE_TICKS)
+    syncs, passes, sites = loop_syncs(eng, tick, TRACE_TICKS, want_syncs,
+                                      sync_files)
     say("trace", f"{TRACE_TICKS} {name} ticks (CUDA sync debug mode): "
-        f"{syncs:g} host syncs per tick at {sites}")
-    if round(syncs, 6) != want_syncs or not all(
-            k.split(":")[0] in sync_files for k in sites):
-        raise AssertionError(f"expected the {want_syncs} host reads of the "
-                             f"effect step per tick, saw {syncs} at {sites}")
+        f"{syncs:g} host syncs per tick at {sites} ({passes:g} fixed-point "
+        "passes per tick)")
+    per["passes"] = passes
     packs = capture_packs(fused, tick)
     eng._flush_body(box[0])
     return packs, per
@@ -1131,6 +1223,274 @@ def phase_calvin(cells, Engine, timed_run, fused, dev, pps_pool):
     return row
 
 
+def check_occ_counts(name, s):
+    """Every OCC abort is a failed validation, of the history or of the
+    active set."""
+    hist, act = s["occ_hist_abort_cnt"], s["occ_active_abort_cnt"]
+    say(name, f"vabort_cnt={s['vabort_cnt']} = occ_hist_abort_cnt={hist} + "
+        f"occ_active_abort_cnt={act}; total_txn_abort_cnt="
+        f"{s['total_txn_abort_cnt']} abort_rate={s['abort_rate']:.6f}")
+    if hist + act != s["vabort_cnt"] or s["vabort_cnt"] \
+            != s["total_txn_abort_cnt"] or not s["vabort_cnt"] > 0:
+        raise AssertionError(f"{name}: OCC's abort counters do not add up")
+
+
+def loop_step(eng, state):
+    """One eager tick of an OCC engine, keeping the step of its fixed
+    point (``device_loop.run_while``'s argument, bound to that tick's
+    sorted entries and carry).  Returns the step and the state."""
+    from deneva_tpu_torch.ops import device_loop
+    got = []
+    orig = device_loop.run_while
+
+    def record(step, site, device):
+        got.append(step)
+        return orig(step, site, device)
+
+    device_loop.run_while = record
+    try:
+        state = eng.tick(state)
+    finally:
+        device_loop.run_while = orig
+    return got[0], state
+
+
+def measure_body_pass(name, step):
+    """One pass of the fixed point's body on a live tick's entries (it has
+    converged, so a pass changes nothing): CUDA events over 50 eager
+    passes, and over a plain graph of 20 passes, with the graph's device
+    time and kernels per pass (torch.profiler)."""
+    eager_ms = cuda_ms(step)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(20):
+            step()
+    graph_ms = cuda_ms(graph.replay, reps=20) / 20
+    busy_ms, kernels, _ = device_ms(graph.replay, reps=5)
+    say("occ", f"{name}: one pass of the fixed point's body {graph_ms:.4f} "
+        f"ms in a graph ({busy_ms / 20 * 1e3:.1f} us on the device in "
+        f"{kernels / 20:g} kernels, torch.profiler), {eager_ms:.4f} ms eager "
+        "(cuda events)")
+    del graph
+    return dict(graph_ms=graph_ms, device_ms=busy_ms / 20,
+                kernels=kernels / 20, eager_ms=eager_ms)
+
+
+def measure_while(dev):
+    """The WHILE node on a bare loop, ``c += 1`` while ``c < n``: one
+    captured graph runs n passes for n = 1, 5, 40 and 1,000 (and 1 for
+    n = 0); per pass (CUDA events), the node's loop (replays at 1,001
+    passes less 1), the body's other kernels (the step's two and the pass
+    counter's bump) 1,000 times in a plain graph (the difference is the
+    set-condition kernel and the node's next iteration), and the host loop that reads the flag once per pass (the
+    plain version); the kernels a traced replay shows.  Returns the
+    record; restores the launch counter."""
+    from deneva_tpu_torch.ops import device_loop
+    device_loop.warm(dev)
+    c = torch.zeros((), dtype=torch.int32, device=dev)
+    n = torch.tensor(1000, dtype=torch.int32, device=dev)
+
+    def step():
+        c.add_(1)
+        return c < n
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    device_loop.run_while(step, "smoke", dev)
+    b.record()
+    torch.cuda.synchronize()
+    host_pass_ms = a.elapsed_time(b) / 1000
+    launches = device_loop.LAUNCHES
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        device_loop.run_while(step, "smoke", dev)
+    pools = device_loop.take_pools()
+    device_loop.LAUNCHES = launches
+
+    def replay(limit):
+        n.fill_(limit)
+        c.zero_()
+        graph.replay()
+
+    err = 0
+    for limit in (1, 5, 40, 1000, 0):
+        replay(limit)
+        torch.cuda.synchronize()
+        err = max(err, abs(int(c.item()) - max(limit, 1)))
+    if err:
+        raise AssertionError(f"WHILE node: pass counts off by {err}")
+    t1 = cuda_ms(lambda: replay(1), reps=50)
+    t1001 = cuda_ms(lambda: replay(1001), reps=20)
+    while_pass_ms = (t1001 - t1) / 1000
+    _, traced, _ = device_ms(lambda: replay(5), reps=5)
+    # the body's kernels but the last: the step's two and the pass
+    # counter's bump
+    counter = device_loop.passes("smoke", dev)
+    plain = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(plain):
+        for _ in range(1000):
+            step()
+            counter.add_(1)
+    plain_graph_pass_ms = cuda_ms(plain.replay, reps=20) / 1000
+    # per pass: c read and written (4 B each), c and n read and the flag
+    # written by the compare (9 B), the pass counter read and written
+    # (8 B each), the flag read by the set kernel (1 B)
+    bytes_ = 34
+    rec = dict(err=err, ms=while_pass_ms, plain_ms=host_pass_ms,
+               plain_graph_pass_ms=plain_graph_pass_ms,
+               set_condition_ms=while_pass_ms - plain_graph_pass_ms,
+               bound_ms=bytes_ / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+               traced_kernels_per_replay=traced)
+    say("while", f"bare loop: one captured graph ran 1, 5, 40, 1000 and 1 "
+        f"(n = 0) passes, exact; per pass {while_pass_ms * 1e3:.3f} us in "
+        f"the WHILE node (replays of 1,001 passes less 1, cuda events), "
+        f"{plain_graph_pass_ms * 1e3:.3f} us for the body's other three "
+        f"kernels in a plain graph, so the set-condition kernel and the "
+        f"node's next iteration take {rec['set_condition_ms'] * 1e3:.3f} "
+        f"us; the host loop {host_pass_ms * 1e3:.3f} us per pass (one flag "
+        f"read each); a traced replay of 5 passes shows {traced:g} device "
+        f"kernels (22 if the profiler sees the body's 4 per pass, 2 if "
+        f"not); bound {rec['bound_ms']:.2e} ms ({bytes_} B)")
+    del graph, plain
+    device_loop.release_pools(dev, pools)
+    return rec
+
+
+def phase_occ(cells, Engine, timed_run, fused, dev, pps_pool):
+    """OCC on the card (phase 16 of the module docstring).  Returns the
+    record of each cell's validation sort (``measure_pack``, with its
+    launches on the cell's timed ticks), by cell, and of the WHILE node
+    (``measure_while``)."""
+    from deneva_tpu_torch.ops import device_loop
+    from deneva_tpu_torch.workloads import pps, tpcc
+
+    def no_cummax(name, per):
+        if per["cummax_launches"]:
+            raise AssertionError(f"the {name} tick runs torch.cummax")
+
+    def validation_row(name, eng, packs, counted):
+        pack = (4, 2, eng.cfg.batch_size * eng.pool.max_req, 0)
+        row = measure_pack(fused, f"{name} validation sort", packs[pack], 2,
+                           0)
+        row.update(pack=pack, launches=counted[pack])
+        return row
+
+    rows = {}
+    # phase_trace checks 1 launch and 0 cummax per tick, and one host sync
+    # per fixed-point pass
+    eng, state, hb, rebase_launches = phase_headline(
+        cells, Engine, timed_run, fused, dev, "headline_occ")
+    if rebase_launches:
+        raise AssertionError(f"OCC launched the rebase kernel: "
+                             f"{rebase_launches}")
+    check_occ_counts("headline_occ", eng.summary(state))
+    step, state = loop_step(eng, state)
+    measure_body_pass("headline_occ", step)
+    del step
+    rows["headline_occ"] = validation_row(
+        "headline_occ", eng, capture_packs(fused, lambda: eng.tick(state)),
+        hb)
+    del eng, state
+
+    eng, state, init, rec = run_effect_cell(
+        cells, "tpcc_occ", Engine, timed_run, fused, dev, tpcc_packs,
+        TPCC_TICKS, tpcc.checksums)
+    payments, neworders, laws = check_tpcc_conservation(
+        tpcc, eng.cfg, init, state.tables, rec["s"])
+    say("tpcc_occ", f"conservation holds ({', '.join(laws)}): {payments} "
+        f"Payments, {neworders} NewOrders")
+    check_occ_counts("tpcc_occ", rec["s"])
+    # the effect step's host read and one flag read per pass
+    packs, per = trace_cell("tpcc_occ", eng, state, fused, 1, ("base.py",))
+    no_cummax("tpcc_occ", per)
+    rows["tpcc_occ"] = validation_row("tpcc_occ", eng, packs, rec["by_pack"])
+    step, state = loop_step(eng, state)
+    body = measure_body_pass("tpcc_occ", step)
+    del eng, state, step
+
+    eng, state, amount0, rec = run_effect_cell(
+        cells, "pps_occ", Engine, timed_run, fused, dev, pps_packs,
+        PPS_TICKS, part_amount_sum)
+    orders, upd = check_pps_conservation(pps, eng.cfg, eng.pool, amount0,
+                                         state)
+    say("pps_occ", f"PART_AMOUNT conserved: {orders} ORDERPRODUCT part "
+        f"writes, {upd} UPDATEPART commits")
+    check_occ_counts("pps_occ", rec["s"])
+    packs, per = trace_cell("pps_occ", eng, state, fused, 1, ("base.py",))
+    no_cummax("pps_occ", per)
+    rows["pps_occ"] = validation_row("pps_occ", eng, packs, rec["by_pack"])
+    del eng, state
+
+    for name, ticks in OC_CPU_TICKS:
+        device_loop.reset_passes()
+        _, cpu, sc, gpu, sg = phase_cpu_equal(
+            cells, name, Engine, dev, ticks,
+            pool=pps_pool if name == "pps_occ" else None)
+        bad = [f for f in sc.txn._fields
+               if not torch.equal(getattr(sg.txn, f).cpu(),
+                                  getattr(sc.txn, f))]
+        pg, pc = loop_passes(gpu), loop_passes(cpu)
+        say("cpu", f"{name}: CUDA and CPU txn slots equal; fixed-point "
+            f"passes {pg} on CUDA, {pc} on the CPU")
+        if bad or pg != pc:
+            raise AssertionError(f"{name}: CUDA and CPU differ: txn slots "
+                                 f"{bad}, passes {pg} != {pc}")
+        del cpu, sc, gpu, sg
+
+    phase_occ_chain(Engine, dev)
+    rec = measure_while(dev)
+    rec["body"] = body
+    return rows, rec
+
+
+def phase_occ_chain(Engine, dev):
+    """The forced chain (``occ_chain``): OC_CHAIN txns finishing in tick 2,
+    run on the CPU, eagerly on CUDA and as graph replays: OC_CHAIN passes
+    in tick 2 (1 in each earlier tick), OC_CHAIN / 2 commits, and equal
+    summaries and data; the replayed tick reads nothing on the host."""
+    from deneva_tpu_torch.config import Config
+    from deneva_tpu_torch.ops import device_loop
+    from deneva_tpu_torch.profile_tick import host_syncs
+    kw, pool = occ_chain(OC_CHAIN)
+    cfg = Config(fused_arbitrate=True, **kw)
+    runs = {}
+    for name, device, compiled in (("cpu", "cpu", False),
+                                   ("cuda eager", dev, False),
+                                   ("cuda graph", dev, True)):
+        eng = Engine(cfg, pool=pool, device=device)
+        box = [eng.advance(0, eng.init_state(), compiled=compiled)]
+        per_tick = []
+
+        def tick():
+            box[0] = eng.advance(1, box[0], compiled=compiled)
+
+        for t in range(3):
+            device_loop.reset_passes()
+            if compiled and t == 2:
+                syncs, sites = host_syncs(tick, 1, "error")
+            else:
+                tick()
+            per_tick.append(loop_passes(eng))
+        state = eng._flush_body(box[0])
+        runs[name] = (per_tick, eng.summary(state), state.data.cpu())
+        del eng, state, box
+    want = [1, 1, OC_CHAIN]
+    for name, (per_tick, s, data) in runs.items():
+        if per_tick != want or s["txn_cnt"] != OC_CHAIN // 2 \
+                or s != runs["cpu"][1] or not torch.equal(data,
+                                                          runs["cpu"][2]):
+            raise AssertionError(f"forced chain, {name}: passes per tick "
+                                 f"{per_tick} (want {want}), txn_cnt "
+                                 f"{s['txn_cnt']}, or not equal to the CPU")
+    say("occ", f"forced chain of {OC_CHAIN} txns finishing in one tick: "
+        f"passes per tick {want} and {OC_CHAIN // 2} commits on the CPU, "
+        "eagerly on CUDA and in CUDA-graph replays (the WHILE node, 0 host "
+        f"syncs in the chain's replayed tick: {syncs:g}); summaries and "
+        "data equal")
+
+
 def graph_packs(eng):
     """The names of the packs the cell's tick sorts, by (columns, keys,
     lanes, shift), and the launches of each per tick on the eager path
@@ -1138,9 +1498,7 @@ def graph_packs(eng):
     and per replay of a captured graph (the full-width effect body, which
     a captured tick runs whatever the reference's choice)."""
     if eng.cfg.workload == "YCSB":
-        N = eng.cfg.batch_size * eng.pool.max_req
         acc_names, every = access_packs(eng, "headline")
-        every[(2, 1, N, 0)] = 1
         return {**PACK_NAMES, **acc_names}, every, every
     packs_fn = tpcc_packs if eng.cfg.workload == "TPCC" else pps_packs
     names, compact, full = packs_fn(eng)
@@ -1207,7 +1565,9 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     base_mb = torch.cuda.memory_allocated(dev) / 2**20
+    p0 = loop_passes(eng)
     state, eager_ms = windows(timed_run, eng, eng.init_state(), False)
+    eager_passes = loop_passes(eng) - p0
     eager_peak = torch.cuda.max_memory_allocated(dev) / 2**20 - base_mb
     eager_by_pack = dict(fused.LAUNCHES_BY_PACK)
     c1 = wl.counts()
@@ -1222,8 +1582,10 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
     state = eng.advance(0, eng.init_state(), compiled=True)
     torch.cuda.synchronize(dev)
     capture_s = time.perf_counter() - t0
+    p0 = loop_passes(eng)
     (state, graph_ms), clocks = sm_clocks(
         lambda: windows(timed_run, eng, state, True))
+    graph_passes = loop_passes(eng) - p0
     graph_peak = torch.cuda.max_memory_allocated(dev) / 2**20 - base_mb
     counted = dict(fused.LAUNCHES_BY_PACK)
     c2 = wl.counts()
@@ -1251,6 +1613,9 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
             or not graph[0]["txn_cnt"] > 0:
         raise AssertionError(f"{name}: the graph run broke the oracle or "
                              "committed nothing")
+    if eager_passes != graph_passes:
+        raise AssertionError(f"{name}: {eager_passes} fixed-point passes "
+                             f"eager, {graph_passes} replayed")
 
     # launches: eager by the bodies taken; a replay by its graph's capture
     if bodies_e.get("full", 0) and eng.cfg.workload != "YCSB":
@@ -1325,8 +1690,39 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
     say("graph", f"{name}: peak device memory above the engine's own "
         f"{eager_peak:.1f} MB eager, {graph_peak:.1f} MB graph (static "
         "buffers and the phase graphs' pool)")
+    if eng.plugin.runs_device_loop:
+        occ_passes_per_tick(name, eng, per, graph_passes)
     return dict(packs=packs, names=names, counted=counted,
-                replayed=replayed)
+                replayed=replayed, passes=graph_passes)
+
+
+def occ_passes_per_tick(name, eng, per, graph_passes):
+    """An OCC cell's fixed point in the graph phase: the passes of the
+    timed windows, the set-condition kernels the replay trace shows, and
+    OC_PASS_TICKS ticks from the initial state, eager and replayed, whose
+    passes are read after each tick and must be equal one by one; prints
+    their histogram."""
+    runs = {}
+    for compiled in (False, True):
+        state = eng.advance(0, eng.init_state(), compiled=compiled)
+        per_tick = []
+        for _ in range(OC_PASS_TICKS):
+            p0 = loop_passes(eng)
+            state = eng.advance(1, state, compiled=compiled)
+            per_tick.append(loop_passes(eng) - p0)
+        eng._flush_body(state)
+        runs[compiled] = per_tick
+        del state
+    if runs[False] != runs[True]:
+        raise AssertionError(f"{name}: fixed-point passes per tick differ: "
+                             f"eager {runs[False]}, replayed {runs[True]}")
+    hist = {d: runs[True].count(d) for d in sorted(set(runs[True]))}
+    say("graph", f"{name}: fixed-point passes {graph_passes} over the "
+        f"{GRAPH_TICKS} replayed ticks ({graph_passes / GRAPH_TICKS:g} per "
+        f"tick), as many as eager; the replay trace shows "
+        f"{per['while_set_launches']:g} set-condition kernels per tick; "
+        f"{OC_PASS_TICKS} ticks from the start, eager == replayed tick by "
+        f"tick, ticks by passes {hist}")
 
 
 def measure_captured(fused, rows, packs, cell_names, names, cell):
@@ -1353,11 +1749,13 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    # CUDA-graph conditional nodes (IF bodies) through torch, which would
-    # let a captured tick run the compacted effect body
+    # CUDA-graph conditional nodes: torch's own (IF bodies would let a
+    # captured tick run the compacted effect body), and the WHILE node the
+    # port binds itself
     cond = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]} graph_conditional_nodes={cond}")
+          f"python {sys.version.split()[0]} graph_conditional_nodes=bound by "
+          f"hand (csrc/graph_while.cu); torch's own: {cond}")
     phase_gpu()
     phase_build(fused, rebase)
     rows = phase_kernel(fused, dev)
@@ -1395,23 +1793,35 @@ def main() -> int:
     reb_ring = phase_mvcc(cells, Engine, timed_run, fused, rebase, dev,
                           rows, names, by_pack, pps_pool)
     calvin = phase_calvin(cells, Engine, timed_run, fused, dev, pps_pool)
+    occ, loop = phase_occ(cells, Engine, timed_run, fused, dev, pps_pool)
 
+    from deneva_tpu_torch.ops import device_loop
     gpu_line = phase_gpu()
     replayed = {}
+    device_loop.reset_launches()
+    loop["replayed"] = 0
     for name in GRAPH_CELLS:
         rec = phase_graph(cells, name, Engine, timed_run, fused, dev,
                           gpu_line)
+        if name in occ:
+            # the validation sort is a row of its own, like CALVIN's lock
+            # sort; the set-condition kernel ran once per replayed pass
+            occ[name]["replayed"] = rec["replayed"].pop(occ[name]["pack"],
+                                                        0)
+            loop["replayed"] += rec["passes"]
         # the packs only the graph path sorts (the full-width effect body):
         # held to the plain version and timed; their launches are the graph
         # path's wrapper count (warm-up and capture)
         new = {p: c for p, c in rec["packs"].items() if p not in rows}
-        names.update(rec["names"])
+        names.update({p: n for p, n in rec["names"].items()
+                      if p not in names})
         measure_captured(fused, rows, new, rec["names"], names, name)
         by_pack.update({p: rec["counted"][p] for p in new})
         for p, n in rec["replayed"].items():
             replayed[p] = replayed.get(p, 0) + n
         if name == "tpcc_calvin":
             calvin["replayed"] = rec["replayed"].get(calvin["pack"], 0)
+    loop["launches"] = device_loop.LAUNCHES
 
     def sort_row(label, pack, r, launches, replayed_launches):
         n_in, nk, n, shift = pack
@@ -1436,6 +1846,24 @@ def main() -> int:
                                      key=lambda kv: names[kv[0]])]
     kernels.append(sort_row("tpcc_calvin lock sort", calvin["pack"], calvin,
                             calvin["launches"], calvin["replayed"]))
+    for name, r in occ.items():
+        kernels.append(sort_row(f"{name} OCC validation sort", r["pack"], r,
+                                r["launches"], r["replayed"]))
+    kernels.append({
+        "name": "graph_while[WHILE node: one pass of a bare loop, add + "
+                "compare + set-condition; plain = the host loop]",
+        "route": "cuda",
+        "source": "deneva_tpu_torch/csrc/graph_while.cu",
+        "replaces": "deneva_tpu/cc/occ.py:291",
+        "launches": loop["launches"],
+        "replayed_launches": loop["replayed"],
+        "max_abs_err": loop["err"], "ms": loop["ms"],
+        "plain_ms": loop["plain_ms"], "bound_ms": loop["bound_ms"],
+        "bound_by": loop["bound_by"], "library_ms": None,
+        "set_condition_ms": loop["set_condition_ms"],
+        "occ_body_pass_ms": loop["body"]["graph_ms"],
+        "occ_body_pass_device_ms": loop["body"]["device_ms"],
+    })
     for rec, what, replaces in (
             (reb, "wts+rts", "deneva_tpu/cc/timestamp.py:119"),
             (reb_ring, "w_ring+r_ring, ring mode",

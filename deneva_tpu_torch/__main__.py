@@ -5,12 +5,14 @@
     python -m deneva_tpu_torch --cell tpcc_timestamp --device cuda --compiled
     python -m deneva_tpu_torch --cell headline_mvcc --device cuda --compiled
     python -m deneva_tpu_torch --cell pps_calvin --device cuda --compiled
+    python -m deneva_tpu_torch --cell tpcc_occ --device cuda --compiled
 
 Runs 20 warm-up ticks, then ``--ticks`` timed ticks, and prints the
 ``[summary]`` line, commits per tick, and the tick time: from CUDA events
 on a GPU, from the host clock on the CPU.  ``--compiled`` runs both as
 ``Engine.run_compiled`` does: on a GPU as replays of CUDA graphs of the
-tick, on the CPU with no host read in the tick.
+tick, on the CPU with no host read in the tick but for OCC's fixed-point
+flag.
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """CC-algorithm registry (the reference's CC_ALG compile switch).  The
-port carries NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC and CALVIN so far."""
+port carries NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN and OCC so far."""
 
 from deneva_tpu_torch.cc.base import AccessDecision, CCPlugin
 from deneva_tpu_torch.cc.calvin import Calvin
 from deneva_tpu_torch.cc.mvcc import Mvcc
 from deneva_tpu_torch.cc.no_wait import NoWait, WaitDie
+from deneva_tpu_torch.cc.occ import Occ
 from deneva_tpu_torch.cc.timestamp import Timestamp
 
 REGISTRY: dict[str, CCPlugin] = {}
@@ -20,6 +21,7 @@ register(WaitDie())
 register(Timestamp())
 register(Mvcc())
 register(Calvin())
+register(Occ())
 
 
 def get(name: str) -> CCPlugin:

@@ -48,13 +48,14 @@ I32 = torch.int32
 I64 = torch.int64
 
 
-def raise_max(dst: torch.Tensor, row, mask, vals) -> None:
+def raise_max(dst: torch.Tensor, row, mask, vals, fill: int = 0) -> None:
     """``dst[row] = max(dst[row], vals)`` where ``mask``, in place.  Lanes
-    outside the mask put 0 (``dst`` holds values >= 0) at a row spread by
-    lane, in bounds and off any single hot row."""
+    outside the mask put ``fill`` (``dst`` holds values >= fill) at a row
+    spread by lane, in bounds and off any single hot row."""
     lanes = torch.arange(row.shape[0], dtype=I32, device=row.device)
     idx = torch.where(mask, row, lanes % dst.shape[0])
-    dst.scatter_reduce_(0, idx.to(I64), torch.where(mask, vals, 0), "amax")
+    dst.scatter_reduce_(0, idx.to(I64), torch.where(mask, vals, fill),
+                        "amax")
 
 
 def pending_before(key, ts, is_write, held, req, w_abort, reduce):

@@ -43,6 +43,12 @@
   warehouse rows are FIFO queues under Payment's ``wh_update``.
 - ``pps_calvin``: the ``pps`` cell under CALVIN, the cell that runs PPS's
   reconnaissance deferral and its read-only shadow requests.
+- ``headline_occ``: the ``headline`` cell under OCC; its ``occ_wcommit``
+  (16,777,216 int32, 64 MB) sits beside the 64 MB ``data``.
+- ``tpcc_occ``: the ``tpcc`` cell under OCC, nothing cut: 241.8 MB of
+  tables and a 67 MB ``occ_wcommit`` over the 16.74M catalog rows.
+- ``pps_occ``: the ``pps`` cell under OCC.  These three are Deneva's OCC
+  column of the VLDB'17 grid at one node.
 """
 
 from __future__ import annotations
@@ -75,6 +81,9 @@ CELLS["tpcc_mvcc"] = dict(CELLS["tpcc"], cc_alg="MVCC")
 CELLS["headline_calvin"] = dict(CELLS["headline"], cc_alg="CALVIN")
 CELLS["tpcc_calvin"] = dict(CELLS["tpcc"], cc_alg="CALVIN")
 CELLS["pps_calvin"] = dict(CELLS["pps"], cc_alg="CALVIN")
+CELLS["headline_occ"] = dict(CELLS["headline"], cc_alg="OCC")
+CELLS["tpcc_occ"] = dict(CELLS["tpcc"], cc_alg="OCC")
+CELLS["pps_occ"] = dict(CELLS["pps"], cc_alg="OCC")
 
 
 def config(name: str, **overrides) -> Config:

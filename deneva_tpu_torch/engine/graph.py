@@ -14,12 +14,16 @@ What a captured tick keeps to (a later slice's tick too):
   ``int()`` or element store from the host.  It is the engine's tick made
   with ``on_device``: a data-dependent branch runs a body that is exact on
   every tick and counts the reference's choice
-  (``WorkloadPlugin.effect_branch``), and a data-dependent loop is
-  rewritten without one (TPC-C's restock chain in closed form);
+  (``WorkloadPlugin.effect_branch``), and a data-dependent loop stays
+  exact in one of three forms: a closed form (TPC-C's restock chain), the
+  reference's own static bound, or a conditional WHILE node of the graph
+  (``ops/device_loop.run_while``: OCC's validation fixed point), whose
+  body runs until the device says stop;
 - every tensor that outlives the tick is a static buffer or a counter
   made before the capture;
 - every lazy start-up (the kernel's build and load, its occupancy query
-  per key count, PyTorch's own) happens in the warm-up, on a side stream,
+  per key count, the WHILE node's library and body stream, a loop's pass
+  counter, PyTorch's own) happens in the warm-up, on a side stream,
   before the capture.
 
 The graphs run on static buffers, an ``EngineState`` made by
@@ -31,7 +35,8 @@ by in-place scatter-max and rebase, MVCC's rings by ``index_copy_`` as
 well) is the buffer itself.  So the state a replay returns is those
 buffers, and the next replay overwrites it.  The phase graphs share one
 memory pool: each one's intermediates die inside it, so replays in any
-order on one stream are safe.
+order on one stream are safe.  A WHILE body allocates from a pool of its
+own, which the graphs' owner releases when it is freed.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from deneva_tpu_torch.engine.scheduler import FLUSH_EVERY, EngineState
-from deneva_tpu_torch.ops import fused
+from deneva_tpu_torch.ops import device_loop, fused
 
 
 def state_items(state: EngineState) -> list:
@@ -60,6 +65,8 @@ class TickGraphs:
 
     def __init__(self, engine):
         self.engine = engine
+        #: the private pools of the captured WHILE bodies
+        self.body_pools: list = []
         self.static = engine.init_state()
         self.names = [k for k, _ in state_items(self.static)]
         self.buffers = [v for _, v in state_items(self.static)]
@@ -70,6 +77,10 @@ class TickGraphs:
         pool = torch.cuda.graph_pool_handle()
         self.graphs = [self._capture(p, pool) for p in range(FLUSH_EVERY)]
 
+    def __del__(self) -> None:
+        self.graphs = None
+        device_loop.release_pools(self.engine.device, self.body_pools)
+
     def _warm_up(self) -> None:
         """One tick of each phase on a side stream, the tick that is
         captured; the workload's counters are restored after it."""
@@ -78,6 +89,8 @@ class TickGraphs:
         saved = {k: v.clone() for k, v in eng.workload.counters.items()}
         if eng.cfg.fused_arbitrate:
             fused.warm()
+        if eng.plugin.runs_device_loop:
+            device_loop.warm(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -100,6 +113,8 @@ class TickGraphs:
         except RuntimeError as err:
             raise RuntimeError(f"CUDA graph capture of the tick (flush phase "
                                f"{phase}) failed: {err}") from err
+        finally:
+            self.body_pools += device_loop.take_pools()
         self.launches.append({k: v - before.get(k, 0)
                               for k, v in fused.LAUNCHES_BY_PACK.items()
                               if v != before.get(k, 0)})

@@ -12,8 +12,8 @@ once.  One tick:
   5. sends aborted txns to exponential backoff (worker_thread.cpp:160-171).
 
 This is the port of ``deneva_tpu/engine/scheduler.py`` for one slice:
-YCSB, TPC-C or PPS under NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC or CALVIN,
-single shard, SERIALIZABLE, NORMAL mode, commit before access, with
+YCSB, TPC-C or PPS under NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN or
+OCC, single shard, SERIALIZABLE, NORMAL mode, commit before access, with
 ``fused_arbitrate`` on or off and every other opt-in flag off.  ``check_slice`` refuses
 anything else; its single-shard rule also covers the JAX engine's ``part_cnt == 1``
 assertion for a workload with commit effects.  Every observatory hook of
@@ -24,12 +24,15 @@ state's counters, rings and workload tables in place (each in-place site
 says so).  The tick count and the warm-up gate live on the device, as in
 the reference; the engine never reads a device value on the host.
 ``Engine.run`` launches every op of every tick from Python.  There, a
-YCSB tick syncs the device nowhere, and TPC-C's and PPS's commit effects
-read one scalar per tick on the host (their compact/full choice).
-``Engine.run_compiled`` runs the tick made with ``on_device``, which
-reads nothing on the host (the full-width effect body on every tick):
-on CUDA as a CUDA graph per flush phase, replayed with no host read
-(``engine/graph.py``); on the CPU in a host loop.
+YCSB tick syncs the device nowhere, TPC-C's and PPS's commit effects
+read one scalar per tick on the host (their compact/full choice), and
+OCC's validation fixed point reads its flag once per pass
+(``ops/device_loop.py``).  ``Engine.run_compiled`` runs the tick made
+with ``on_device``, which reads nothing on the host (the full-width
+effect body on every tick): on CUDA as a CUDA graph per flush phase,
+replayed with no host read, OCC's loop a WHILE node of the graph
+(``engine/graph.py``); on the CPU in a host loop, where OCC's loop still
+reads its flag.
 """
 
 from __future__ import annotations
@@ -43,8 +46,8 @@ import torch
 from deneva_tpu_torch import cc as cc_registry
 from deneva_tpu_torch import workloads as wl_registry
 from deneva_tpu_torch.config import (
-    CALVIN, MODE_NORMAL, MVCC, NO_WAIT, PPS, SERIALIZABLE, TIMESTAMP, TPCC,
-    WAIT_DIE, YCSB, Config, optin_flags,
+    CALVIN, MODE_NORMAL, MVCC, NO_WAIT, OCC, PPS, SERIALIZABLE, TIMESTAMP,
+    TPCC, WAIT_DIE, YCSB, Config, optin_flags,
 )
 from deneva_tpu_torch.device import resolve_device
 from deneva_tpu_torch.engine.state import (
@@ -103,7 +106,7 @@ LAT_SAMPLES = 1 << 14
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for a config outside the ported slice."""
     bad = []
-    if cfg.cc_alg not in (NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN):
+    if cfg.cc_alg not in (NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN, OCC):
         bad.append(f"cc_alg={cfg.cc_alg}")
     if cfg.workload not in (YCSB, TPCC, PPS):
         bad.append(f"workload={cfg.workload}")
@@ -125,8 +128,8 @@ def check_slice(cfg: Config) -> None:
     if bad:
         raise NotImplementedError(
             "outside the ported slice (YCSB, TPC-C or PPS under NO_WAIT, "
-            "WAIT_DIE, TIMESTAMP, MVCC or CALVIN, single shard, default "
-            "flags): "
+            "WAIT_DIE, TIMESTAMP, MVCC, CALVIN or OCC, single shard, "
+            "default flags): "
             + ", ".join(bad))
 
 

@@ -149,6 +149,34 @@ def seg_prefix_max_sorted(vals: torch.Tensor, mask: torch.Tensor,
                                          .to(I64)), identity)
 
 
+def run_start_index(run_start: torch.Tensor,
+                    sidx: torch.Tensor) -> torch.Tensor:
+    """Index of the last lane at or before me in my segment that has
+    ``run_start`` set, -1 if none: my own index where I am a run start,
+    else ``last_before(run_start, sidx)``.  No cummax."""
+    return torch.where(run_start, _iota(run_start),
+                       last_before(run_start, sidx))
+
+
+def at_run_start(prefix_val: torch.Tensor, run_start: torch.Tensor,
+                 sidx: torch.Tensor, identity, op: str = "max",
+                 rs_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Value of an exclusive prefix reduction at my (segment, owner)-run
+    start: the reference's ``at_run_start(prefix_val, run_start, starts,
+    identity, op)``, the "skip my own entries" exclusion of the OCC
+    validator.  ``prefix_val`` does not decrease inside a segment and is
+    at least ``identity``, so the running max over the run starts at or
+    before me is the value at the last of them: one gather at
+    ``run_start_index`` (pass ``rs_idx`` when it is fixed across calls).
+    Only ``op="max"`` is ported; "min" comes with MAAT."""
+    if op != "max":
+        raise NotImplementedError(f"at_run_start op={op!r} is not ported")
+    if rs_idx is None:
+        rs_idx = run_start_index(run_start, sidx)
+    got = prefix_val.index_select(0, torch.clamp(rs_idx, min=0).to(I64))
+    return torch.where(rs_idx >= 0, got, identity)
+
+
 def seg_cumsum_exclusive(x: torch.Tensor, starts: torch.Tensor,
                          sidx: Optional[torch.Tensor] = None):
     """Per-segment exclusive prefix sum (count of `x` strictly before me):

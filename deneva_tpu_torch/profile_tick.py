@@ -7,6 +7,7 @@
     python -m deneva_tpu_torch.profile_tick --cell pps --compiled
     python -m deneva_tpu_torch.profile_tick --cell tpcc_timestamp --compiled
     python -m deneva_tpu_torch.profile_tick --cell tpcc_mvcc --compiled
+    python -m deneva_tpu_torch.profile_tick --cell tpcc_occ --compiled
 
 Runs the cell's warm-up, then times ``--ticks`` ticks with CUDA events
 (no profiler attached), counting the fused kernel's launches by pack,
@@ -44,6 +45,8 @@ SORT_KERNELS = ("fused_sort_scan_kernel",)
 #: device kernels of torch.cummax
 CUMMAX_KERNELS = ("cummax", "scan_innermost_dim_with_indices",
                   "scan_outer_dim_with_indices")
+#: kernel name of csrc/graph_while.cu (a WHILE body's last kernel)
+WHILE_KERNELS = ("set_condition_kernel",)
 
 
 def device_us(evt) -> float:
@@ -99,7 +102,8 @@ def trace_kernels(fn, reps: int, expect_sort=None) -> list:
 
 def breakdown(kernels, reps: int) -> dict:
     """Per traced call: device busy µs, kernel launches, and the fused
-    kernel's µs and launches, and the launches of torch.cummax."""
+    kernel's µs and launches, and the launches of torch.cummax and of the
+    WHILE node's set-condition kernel."""
     sort_us = sum(device_us(e) for e in kernels
                   if any(k in e.key for k in SORT_KERNELS))
     return {
@@ -108,6 +112,7 @@ def breakdown(kernels, reps: int) -> dict:
         "fused_sort_scan_us": sort_us / reps,
         "fused_sort_scan_launches": launches_of(kernels, SORT_KERNELS) / reps,
         "cummax_launches": launches_of(kernels, CUMMAX_KERNELS) / reps,
+        "while_set_launches": launches_of(kernels, WHILE_KERNELS) / reps,
     }
 
 

@@ -6,11 +6,17 @@ loop.  It is held bit-equal to the JAX package's ``run_compiled`` (one
 ``data``, every table and the effect bodies taken.  A guard makes every
 host read of a tensor raise while ``run_compiled`` ticks, so a host read
 brought back into the tick fails here, without a card; under TIMESTAMP
-that holds for TPC-C restock chains of any depth.  Every comparison
-is exact (integers).  The CUDA-graph twin of these checks is in
-``tests/test_torch_cuda.py``."""
+that holds for TPC-C restock chains of any depth.  OCC's fixed point is
+the one exception on the CPU: ``ops/device_loop.py``'s host loop stands in
+for the graph's WHILE node and reads its flag once per pass, so the guard
+lets reads from that file through and counts them (the card's replayed
+tick makes none, ``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+Every comparison is exact (integers).  The CUDA-graph twin of these
+checks is in ``tests/test_torch_cuda.py``."""
 
 import contextlib
+import os
+import sys
 import warnings
 
 import numpy as np
@@ -24,6 +30,7 @@ from deneva_tpu.workloads.base import QueryPool as JPool  # noqa: E402
 from deneva_tpu_torch import workloads as wl_registry  # noqa: E402
 from deneva_tpu_torch.config import Config as TConfig  # noqa: E402
 from deneva_tpu_torch.engine.scheduler import Engine as TEngine  # noqa: E402
+from deneva_tpu_torch.ops import device_loop  # noqa: E402
 from deneva_tpu_torch.workloads import base, pps, tpcc  # noqa: E402
 from tests import test_torch_mvcc as t_mv  # noqa: E402
 from tests import test_torch_timestamp as t_to  # noqa: E402
@@ -154,16 +161,27 @@ def test_full_width_effect_ticks(workload, over, monkeypatch):
 
 
 @contextlib.contextmanager
-def _no_host_reads(monkeypatch):
+def _no_host_reads(monkeypatch, allow=()):
+    """Every host read of a tensor raises, but for those made from a file
+    named in `allow`, which go through and are counted by file in the
+    dict this yields."""
+    seen = {}
+
     def refuse(name):
-        def read(*_a, **_k):
+        orig = getattr(torch.Tensor, name)
+
+        def read(self, *a, **k):
+            caller = os.path.basename(sys._getframe(1).f_code.co_filename)
+            if caller in allow:
+                seen[caller] = seen.get(caller, 0) + 1
+                return orig(self, *a, **k)
             raise AssertionError(f"host read of a tensor: Tensor.{name}")
         return read
 
     with monkeypatch.context() as m:
         for name in ("item", "__bool__", "__int__", "tolist"):
             m.setattr(torch.Tensor, name, refuse(name))
-        yield
+        yield seen
 
 
 #: configs whose effect step takes the device branch (B*R > K)
@@ -270,6 +288,43 @@ def test_calvin_run_compiled_matches_reference(workload, monkeypatch):
     assert s["txn_cnt"] > 0 and s["total_txn_abort_cnt"] == 0
     assert s["twopl_wait_cnt"] > 0
     assert (s["recon_cnt"] > 0) == (workload == "pps")
+
+
+#: OCC configs of the compiled tick: contended YCSB, TPC-C and PPS at
+#: B*R > K
+OCC_CFGS = {
+    "ycsb": _kw("ycsb", "OCC", False),
+    "tpcc": dict(GUARD_CFGS["tpcc"], cc_alg="OCC", fused_arbitrate=False),
+    "pps": dict(GUARD_CFGS["pps"], cc_alg="OCC", fused_arbitrate=False),
+}
+
+
+@pytest.mark.parametrize("workload", sorted(OCC_CFGS))
+def test_occ_run_compiled_matches_reference(workload, monkeypatch):
+    # OCC's compiled tick under the guard: the only host reads are the
+    # fixed point's flag, one per pass, all from ops/device_loop.py (on the
+    # card a WHILE node of the graph); equal to the reference's
+    # run_compiled and to the port's eager run, occ_wcommit included
+    je, tc, te = _engines(OCC_CFGS[workload])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        js = je.run_compiled(sum(CHUNKS))
+    ts = None
+    device_loop.reset_passes()
+    with _no_host_reads(monkeypatch, allow=("device_loop.py",)) as seen:
+        for n in CHUNKS:
+            ts = tc.run_compiled(n, ts)
+    passes = int(device_loop.passes("occ", "cpu"))
+    es = _run(te.run, CHUNKS)
+    s = _assert_same(je, js, tc, ts)
+    _assert_same(te, es, tc, ts)
+    assert s["txn_cnt"] > 0 and s["vabort_cnt"] > 0
+    for k in ts.db:
+        np.testing.assert_array_equal(np.asarray(js.db[k]), ts.db[k].numpy(),
+                                      err_msg=k)
+        assert torch.equal(es.db[k], ts.db[k]), k
+    assert seen == {"device_loop.py": passes}, seen
+    assert passes > sum(CHUNKS)
 
 
 def test_unbounded_effect_chain_reads_the_host(monkeypatch):

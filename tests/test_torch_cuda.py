@@ -1,5 +1,6 @@
 """Tests of the port that need a CUDA device: the Hopper kernel against
-its plain version, and the engine's CUDA path against its CPU path.  They
+its plain version, the graph WHILE node against the host loop, and the
+engine's CUDA path against its CPU path.  They
 skip on a host without a card.  This file imports no JAX, so it also runs
 on the GPU host, which has none:
 
@@ -15,7 +16,7 @@ torch = pytest.importorskip("torch")
 
 from deneva_tpu_torch.config import Config  # noqa: E402
 from deneva_tpu_torch.engine.scheduler import Engine  # noqa: E402
-from deneva_tpu_torch.ops import fused, rebase  # noqa: E402
+from deneva_tpu_torch.ops import device_loop, fused, rebase  # noqa: E402
 from deneva_tpu_torch.profile_tick import breakdown, trace_kernels  # noqa: E402
 from deneva_tpu_torch.storage.ordered import OrderedIndex  # noqa: E402
 
@@ -389,6 +390,37 @@ def test_calvin_engine_cuda_matches_cpu(dev, workload):
         assert torch.equal(getattr(sg.txn, f).cpu(), getattr(sc.txn, f)), f
 
 
+@pytest.mark.parametrize("workload", sorted(WAIT_DIE_CFGS))
+def test_occ_engine_cuda_matches_cpu(dev, workload):
+    # OCC: the validation sort on the kernel (its only sort: access grants
+    # everything), the fixed point on the host, one flag read per pass;
+    # the pass counts agree
+    cfg = Config(cc_alg="OCC", fused_arbitrate=True,
+                 **WAIT_DIE_CFGS[workload])
+    gpu = Engine(cfg, device=dev)
+    cpu = Engine(cfg, pool=gpu.pool, device="cpu")
+    fused.reset_launches()
+    device_loop.reset_passes()
+    sg = gpu.run(60)
+    sc = cpu.run(60)
+    s = gpu.summary(sg)
+    assert s == cpu.summary(sc)
+    assert s["txn_cnt"] > 0 and s["vabort_cnt"] > 0
+    assert s["occ_hist_abort_cnt"] + s["occ_active_abort_cnt"] \
+        == s["vabort_cnt"]
+    n = cfg.batch_size * gpu.pool.max_req
+    assert fused.LAUNCHES_BY_PACK[(4, 2, n, 0)] == 60
+    assert int(device_loop.passes("occ", dev)) \
+        == int(device_loop.passes("occ", "cpu")) > 60
+    assert torch.equal(sg.data.cpu(), sc.data)
+    for k in sc.tables:
+        assert torch.equal(sg.tables[k].cpu(), sc.tables[k]), k
+    for k in sc.db:
+        assert torch.equal(sg.db[k].cpu(), sc.db[k]), k
+    for f in sc.txn._fields:
+        assert torch.equal(getattr(sg.txn, f).cpu(), getattr(sc.txn, f)), f
+
+
 @pytest.mark.parametrize("n", [81_920, 172_032, 270_336])
 def test_mvcc_version_insert_pack_matches_plain_in_one_launch(dev, n):
     # (key, BIG_TS - ts, ts, committed write) by 2 keys at each cell's
@@ -448,7 +480,7 @@ def _assert_same_run(eng, a, b):
 
 
 @pytest.mark.parametrize("cc", ["NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC",
-                                "CALVIN"])
+                                "CALVIN", "OCC"])
 @pytest.mark.parametrize("workload", sorted(GRAPH_CFGS))
 def test_graph_replay_matches_eager(dev, workload, cc):
     # 40 ticks: eager, then replayed from the initial state in two calls
@@ -466,10 +498,11 @@ def test_graph_replay_matches_eager(dev, workload, cc):
     assert eng.summary(sg)["txn_cnt"] > 0
     assert {k: c1[k] - c0[k] for k in c0} == {k: c2[k] - c1[k] for k in c0}
     # launches counted at capture only: the warm-up's 3 ticks and the 3
-    # phase graphs, not the 40 replays; MVCC adds its version insert
+    # phase graphs, not the 40 replays; MVCC adds its version insert, and
+    # OCC sorts once to validate in place of the lock sort and unpermute
     per_tick = sum(eng.graphs.launches[0].values())
     assert per_tick == {"ycsb": 2, "tpcc": 7, "pps": 3}[workload] \
-        + (cc == "MVCC")
+        + (cc == "MVCC") - (cc == "OCC")
     assert fused.LAUNCHES == 6 * per_tick
     # a replayed tick never syncs the host
     torch.cuda.set_sync_debug_mode("error")
@@ -478,6 +511,88 @@ def test_graph_replay_matches_eager(dev, workload, cc):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert st.host_tick == 46
+
+
+def _passes_per_tick(eng, state, n_ticks, compiled):
+    """Advance n_ticks one at a time; the OCC fixed point's passes in
+    each, read from its device counter (a host read between ticks)."""
+    out = []
+    for _ in range(n_ticks):
+        device_loop.reset_passes()
+        state = eng.advance(1, state, compiled=compiled)
+        out.append(int(device_loop.passes("occ", eng.device)))
+    return state, out
+
+
+@pytest.mark.parametrize("workload", sorted(GRAPH_CFGS))
+def test_occ_graph_replay_runs_the_eager_passes(dev, workload):
+    # the WHILE node runs each replayed tick's fixed point to convergence:
+    # as many passes as the eager tick's host loop, tick by tick
+    cfg = Config(cc_alg="OCC", fused_arbitrate=True, **GRAPH_CFGS[workload])
+    eng = Engine(cfg, device=dev)
+    se, eager = _passes_per_tick(eng, eng.init_state(), 30, False)
+    eng._flush_body(se)
+    state = eng.advance(0, eng.init_state(), compiled=True)
+    assert device_loop.LAUNCHES > 0
+    sg, graph = _passes_per_tick(eng, state, 30, True)
+    eng._flush_body(sg)
+    _assert_same_run(eng, se, sg)
+    assert eager == graph and max(eager) > 1, (eager, graph)
+
+
+def test_occ_deep_chain_replays_every_pass(dev):
+    # 40 txns finishing in one tick, each reading the row the one before
+    # writes: 40 passes, 20 commits, in a replay as eagerly and on the CPU
+    from chip_smoke import occ_chain
+    kw, pool = occ_chain(40)
+    cfg = Config(fused_arbitrate=True, **kw)
+    runs = {}
+    for name, device, compiled in (("cpu", "cpu", False),
+                                   ("eager", dev, False),
+                                   ("graph", dev, True)):
+        eng = Engine(cfg, pool=pool, device=device)
+        state = eng.init_state()
+        if compiled:
+            state = eng.advance(0, state, compiled=True)
+        state, per_tick = _passes_per_tick(eng, state, 3, compiled)
+        eng._flush_body(state)
+        runs[name] = (per_tick, eng.summary(state))
+    for name, (per_tick, s) in runs.items():
+        assert per_tick == [1, 1, 40], (name, per_tick)
+        assert s["txn_cnt"] == 20 and s["vabort_cnt"] == 20, name
+        assert s == runs["cpu"][1], name
+
+
+def test_while_node_has_no_bound(dev):
+    # a bare WHILE node: the body bumps a counter until it reaches n; one
+    # captured graph runs 5, 40 and 1000 passes, and 1 when the flag is
+    # false at once (the loop runs at least once)
+    device_loop.warm(dev)
+    c = torch.zeros((), dtype=torch.int32, device=dev)
+    n = torch.tensor(5, dtype=torch.int32, device=dev)
+
+    def step():
+        c.add_(1)
+        return c < n
+
+    device_loop.run_while(step, "test", dev)       # makes the counter
+    assert int(c) == 5
+    graph = torch.cuda.CUDAGraph()
+    before = device_loop.LAUNCHES
+    with torch.cuda.graph(graph):
+        device_loop.run_while(step, "test", dev)
+    pools = device_loop.take_pools()
+    assert device_loop.LAUNCHES == before + 1 and len(pools) == 1
+    for limit, want in ((5, 5), (40, 40), (1000, 1000), (0, 1)):
+        n.fill_(limit)
+        c.zero_()
+        device_loop.reset_passes()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(c) == want
+        assert int(device_loop.passes("test", dev)) == want
+    del graph
+    device_loop.release_pools(dev, pools)
 
 
 def test_graph_replay_without_fused_kernel(dev):

@@ -30,11 +30,11 @@ MODULES = (
     "deneva_tpu_torch.engine.scheduler", "deneva_tpu_torch.engine.graph",
     "deneva_tpu_torch.ops.segment",
     "deneva_tpu_torch.ops.fused", "deneva_tpu_torch.ops.cuda_build",
-    "deneva_tpu_torch.ops.rebase",
+    "deneva_tpu_torch.ops.rebase", "deneva_tpu_torch.ops.device_loop",
     "deneva_tpu_torch.cc", "deneva_tpu_torch.cc.base",
     "deneva_tpu_torch.cc.compact", "deneva_tpu_torch.cc.twopl",
     "deneva_tpu_torch.cc.no_wait", "deneva_tpu_torch.cc.timestamp",
-    "deneva_tpu_torch.cc.calvin",
+    "deneva_tpu_torch.cc.calvin", "deneva_tpu_torch.cc.occ",
     "deneva_tpu_torch.profile_tick",
     "chip_smoke",
 )
@@ -100,7 +100,12 @@ OUTSIDE = {
     "calvin_multi_partition": dict(cc_alg="CALVIN", part_cnt=2),
     # TIMESTAMP's sub-ticked path (twopl.ts_groups) is not ported
     "timestamp_sub_ticks": dict(cc_alg="TIMESTAMP", sub_ticks=2),
-    "occ": dict(cc_alg="OCC"),
+    # OCC's depgraph victim plane is not ported
+    "occ_depgraph": dict(cc_alg="OCC", depgraph=True,
+                         abort_attribution=True),
+    # nor is the sharded OCC (its per-owner group_and verdicts)
+    "occ_multi_partition": dict(cc_alg="OCC", part_cnt=2),
+    "maat": dict(cc_alg="MAAT"),
     # TPC-C and PPS are ported on one shard only
     "pps": dict(workload="PPS", part_cnt=2),
     "tpcc": dict(workload="TPCC", part_cnt=2),

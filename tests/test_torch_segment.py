@@ -1,8 +1,9 @@
 """The port's sorted-segment primitives (deneva_tpu_torch/ops/segment.py)
 against their jnp counterparts in deneva_tpu/ops/segment.py, on random
 sorted segments made with numpy from a seed, plus the hand cases of
-tests/test_segment_ops.py.  All comparisons are exact (integer and
-boolean outputs)."""
+tests/test_segment_ops.py, and the host loop of
+deneva_tpu_torch/ops/device_loop.py.  All comparisons are exact (integer
+and boolean outputs)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from deneva_tpu.ops import segment as jseg  # noqa: E402
+from deneva_tpu_torch.ops import device_loop  # noqa: E402
 from deneva_tpu_torch.ops import segment as tseg  # noqa: E402
 
 SIZES = (1, 7, 130, 1000)
@@ -71,6 +73,51 @@ def test_cumsum_exclusive_and_any_before_at_start_index(n):
         jseg.seg_cumsum_exclusive(J(cnt), js))
     _eq(tseg.seg_any_before(T(mask), ts, sidx),
         jseg.seg_any_before(J(mask), js))
+
+
+@pytest.mark.parametrize("all_starts", [True, False],
+                         ids=["occ_runs", "any_runs"])
+@pytest.mark.parametrize("n", SIZES)
+def test_at_run_start_matches_reference(n, all_starts):
+    # a non-decreasing exclusive count per segment, read at the last run
+    # start at or before each lane: OCC's runs (every segment start is a
+    # run start), or any runs (lanes before a segment's first run start
+    # read the identity)
+    ids, _, cnt, mask = _segments(n, 70 + n)
+    ts, js = tseg.segment_starts(T(ids)), jseg.segment_starts(J(ids))
+    prefix = jseg.seg_cumsum_exclusive(J(cnt), js)
+    runs = np.random.default_rng(n).random(n) < 0.3
+    run_start = runs | np.asarray(js) if all_starts else runs
+    sidx = tseg.start_index(ts)
+    want = jseg.at_run_start(prefix, J(run_start), js, -1, "max")
+    got = tseg.at_run_start(T(np.asarray(prefix)), T(run_start), sidx, -1)
+    _eq(got, want)
+    rs_idx = tseg.run_start_index(T(run_start), sidx)
+    _eq(tseg.at_run_start(T(np.asarray(prefix)), None, None, -1,
+                          rs_idx=rs_idx), want)
+    if all_starts:
+        assert (rs_idx >= 0).all()
+    with pytest.raises(NotImplementedError, match="min"):
+        tseg.at_run_start(T(np.asarray(prefix)), T(run_start), sidx, -1,
+                          "min")
+
+
+@pytest.mark.parametrize("depth", [1, 2, 9, 40])
+def test_run_while_on_the_cpu(depth):
+    # the host loop: the carry advances in place until the flag is false,
+    # one pass per step, at least one; the site's counter counts them
+    carry = torch.zeros(3, dtype=torch.int32)
+    ptr = carry.data_ptr()
+
+    def step():
+        carry.add_(torch.tensor([1, 2, 0], dtype=torch.int32))
+        return carry[0] < depth
+
+    device_loop.reset_passes()
+    device_loop.run_while(step, "segment_test", "cpu")
+    assert carry.tolist() == [depth, 2 * depth, 0]
+    assert carry.data_ptr() == ptr
+    assert int(device_loop.passes("segment_test", "cpu")) == depth
 
 
 @pytest.mark.parametrize("op", ["min", "max", "sum"])
