@@ -89,8 +89,8 @@ Phases, each printing one line:
      timed as a row of its own; one pass of the fixed point's body timed
      (CUDA events, in a plain graph and eager); CPU == CUDA under OCC on
      the three cells (see OC_CPU_TICKS), txn slots and passes included;
-     the forced chain (``occ_chain``: OC_CHAIN txns finishing in one tick)
-     on the CPU, eager on CUDA and replayed: OC_CHAIN passes, OC_CHAIN / 2
+     the forced chain (``cc/occ.py`` ``chain_pool``: OC_CHAIN txns
+     finishing in one tick) on the CPU, eager on CUDA and replayed: OC_CHAIN passes, OC_CHAIN / 2
      commits, no host sync in the replay; the WHILE node on a bare loop:
      exact pass counts up to 1,000 from one graph, its time per pass
      against the same kernels in a plain graph and against the host loop;
@@ -170,7 +170,7 @@ CA_CPU_TICKS = (("headline_calvin", 20), ("tpcc_calvin", 20),
                 ("pps_calvin", 20))
 #: ticks of the CPU == CUDA checks under OCC, by cell
 OC_CPU_TICKS = (("headline_occ", 20), ("tpcc_occ", 20), ("pps_occ", 20))
-#: the forced chain of OCC txns finishing in one tick (``occ_chain``)
+#: the forced chain of OCC txns finishing in one tick (``chain_pool``)
 OC_CHAIN = 40
 #: OCC cells: ticks whose fixed-point passes are held equal one by one,
 #: eager against replayed
@@ -225,9 +225,11 @@ def tpcc_packs(eng):
     N = B * eng.pool.max_req
     K = tpcc.effect_lanes(eng.cfg, N)
     acc_names, every = access_packs(eng, "tpcc")
+    wide = "tpcc unpermute (+ 3 full-width ring appends)" \
+        if (2, 1, N, 0) in acc_names else "tpcc full-width ring appends"
     names = {
         **acc_names,
-        (2, 1, N, 0): "tpcc unpermute (+ 3 full-width ring appends)",
+        (2, 1, N, 0): wide,
         (8, 2, N, 0): "tpcc effect compaction",
         (2, 1, B, 0): "tpcc o_id rank",
         (3, 2, K, 0): "tpcc restock chain",
@@ -263,26 +265,6 @@ def pps_packs(eng):
     full = dict(every)
     full.update({(3, 2, N, 0): 1})
     return names, compact, full
-
-
-def occ_chain(n: int):
-    """A config and a hand-made pool of `n` txns that all finish in tick 2,
-    in ts order, txn i reading the row txn i-1 writes (txn 0 reads a row
-    nobody writes).  OCC's active-writer fixed point alternates down the
-    chain: it takes n passes, and the even txns commit (n/2 for even n)."""
-    from deneva_tpu_torch.workloads.base import QueryPool
-    keys = np.stack([np.r_[n + 10, np.arange(n - 1)], np.arange(n)],
-                    1).astype(np.int32)
-    iw = np.zeros_like(keys, bool)
-    iw[:, 1] = True
-    pool = QueryPool(keys=keys, is_write=iw, n_req=np.full(n, 2, np.int32),
-                     home_part=np.zeros(n, np.int32),
-                     txn_type=np.zeros(n, np.int32),
-                     args=np.zeros((n, 1), np.int32))
-    kw = dict(cc_alg="OCC", batch_size=n, synth_table_size=2 * n + 16,
-              req_per_query=2, query_pool_size=n, warmup_ticks=0,
-              backoff=False)
-    return kw, pool
 
 
 def say(phase: str, msg: str) -> None:
@@ -502,12 +484,18 @@ def measure_pack(fused, name, cols, nk, shift):
                 bound_ms=bms, bound_by=by)
 
 
+def runs_loop(eng) -> bool:
+    """Whether a tick of `eng` runs OCC's fixed point
+    (``device_loop.run_while``)."""
+    return eng.plugin.name == "OCC"
+
+
 def loop_passes(eng) -> int:
     """The passes OCC's fixed point has run on the engine's device since
     the counters were last reset (0 for a plugin with no device loop)."""
     from deneva_tpu_torch.cc.occ import LOOP_SITE
     from deneva_tpu_torch.ops import device_loop
-    if not eng.plugin.runs_device_loop:
+    if not runs_loop(eng):
         return 0
     return int(device_loop.passes(LOOP_SITE, eng.device).item())
 
@@ -1236,23 +1224,19 @@ def check_occ_counts(name, s):
 
 
 def loop_step(eng, state):
-    """One eager tick of an OCC engine, keeping the step of its fixed
-    point (``device_loop.run_while``'s argument, bound to that tick's
-    sorted entries and carry).  Returns the step and the state."""
-    from deneva_tpu_torch.ops import device_loop
-    got = []
-    orig = device_loop.run_while
-
-    def record(step, site, device):
-        got.append(step)
-        return orig(step, site, device)
-
-    device_loop.run_while = record
-    try:
-        state = eng.tick(state)
-    finally:
-        device_loop.run_while = orig
-    return got[0], state
+    """One pass of OCC's fixed point (``cc/occ.py`` ``make_step``) on the
+    entries of the txns of `state` that finish in its next tick (user
+    aborts aside), after their history check; run to convergence first,
+    so a pass changes nothing."""
+    from deneva_tpu_torch.cc import occ
+    from deneva_tpu_torch.engine.state import STATUS_RUNNING
+    txn = state.txn
+    finishing = (txn.status == STATUS_RUNNING) & (txn.cursor >= txn.n_req)
+    step, _ = occ.make_step(txn, *occ.history_check(state.db, txn,
+                                                    finishing))
+    while bool(step()):
+        pass
+    return step
 
 
 def measure_body_pass(name, step):
@@ -1286,7 +1270,6 @@ def measure_while(dev):
     plain version); the kernels a traced replay shows.  Returns the
     record; restores the launch counter."""
     from deneva_tpu_torch.ops import device_loop
-    device_loop.warm(dev)
     c = torch.zeros((), dtype=torch.int32, device=dev)
     n = torch.tensor(1000, dtype=torch.int32, device=dev)
 
@@ -1306,7 +1289,6 @@ def measure_while(dev):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         device_loop.run_while(step, "smoke", dev)
-    pools = device_loop.take_pools()
     device_loop.LAUNCHES = launches
 
     def replay(limit):
@@ -1354,7 +1336,6 @@ def measure_while(dev):
         f"kernels (22 if the profiler sees the body's 4 per pass, 2 if "
         f"not); bound {rec['bound_ms']:.2e} ms ({bytes_} B)")
     del graph, plain
-    device_loop.release_pools(dev, pools)
     return rec
 
 
@@ -1386,9 +1367,7 @@ def phase_occ(cells, Engine, timed_run, fused, dev, pps_pool):
         raise AssertionError(f"OCC launched the rebase kernel: "
                              f"{rebase_launches}")
     check_occ_counts("headline_occ", eng.summary(state))
-    step, state = loop_step(eng, state)
-    measure_body_pass("headline_occ", step)
-    del step
+    measure_body_pass("headline_occ", loop_step(eng, state))
     rows["headline_occ"] = validation_row(
         "headline_occ", eng, capture_packs(fused, lambda: eng.tick(state)),
         hb)
@@ -1406,9 +1385,8 @@ def phase_occ(cells, Engine, timed_run, fused, dev, pps_pool):
     packs, per = trace_cell("tpcc_occ", eng, state, fused, 1, ("base.py",))
     no_cummax("tpcc_occ", per)
     rows["tpcc_occ"] = validation_row("tpcc_occ", eng, packs, rec["by_pack"])
-    step, state = loop_step(eng, state)
-    body = measure_body_pass("tpcc_occ", step)
-    del eng, state, step
+    body = measure_body_pass("tpcc_occ", loop_step(eng, state))
+    del eng, state
 
     eng, state, amount0, rec = run_effect_cell(
         cells, "pps_occ", Engine, timed_run, fused, dev, pps_packs,
@@ -1446,14 +1424,15 @@ def phase_occ(cells, Engine, timed_run, fused, dev, pps_pool):
 
 
 def phase_occ_chain(Engine, dev):
-    """The forced chain (``occ_chain``): OC_CHAIN txns finishing in tick 2,
+    """The forced chain (``chain_pool``): OC_CHAIN txns finishing in tick 2,
     run on the CPU, eagerly on CUDA and as graph replays: OC_CHAIN passes
     in tick 2 (1 in each earlier tick), OC_CHAIN / 2 commits, and equal
     summaries and data; the replayed tick reads nothing on the host."""
+    from deneva_tpu_torch.cc.occ import chain_pool
     from deneva_tpu_torch.config import Config
     from deneva_tpu_torch.ops import device_loop
     from deneva_tpu_torch.profile_tick import host_syncs
-    kw, pool = occ_chain(OC_CHAIN)
+    kw, pool = chain_pool(OC_CHAIN)
     cfg = Config(fused_arbitrate=True, **kw)
     runs = {}
     for name, device, compiled in (("cpu", "cpu", False),
@@ -1690,7 +1669,7 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
     say("graph", f"{name}: peak device memory above the engine's own "
         f"{eager_peak:.1f} MB eager, {graph_peak:.1f} MB graph (static "
         "buffers and the phase graphs' pool)")
-    if eng.plugin.runs_device_loop:
+    if runs_loop(eng):
         occ_passes_per_tick(name, eng, per, graph_passes)
     return dict(packs=packs, names=names, counted=counted,
                 replayed=replayed, passes=graph_passes)
@@ -1813,8 +1792,15 @@ def main() -> int:
         # held to the plain version and timed; their launches are the graph
         # path's wrapper count (warm-up and capture)
         new = {p: c for p, c in rec["packs"].items() if p not in rows}
-        names.update({p: n for p, n in rec["names"].items()
-                      if p not in names})
+        # a pack that cells sort for different uses is named by each (OCC's
+        # validation sort aside: it is a row of its own)
+        for p in rec["packs"]:
+            n = rec["names"][p]
+            if p not in names:
+                names[p] = n
+            elif n not in names[p].split(" / ") and not (
+                    name in occ and p == occ[name]["pack"]):
+                names[p] += f" / {n}"
         measure_captured(fused, rows, new, rec["names"], names, name)
         by_pack.update({p: rec["counted"][p] for p in new})
         for p, n in rec["replayed"].items():

@@ -101,9 +101,6 @@ class CCPlugin:
     never_aborts: bool = False
     #: registered reasons this plugin's access decisions can carry
     access_abort_reasons: tuple[str, ...] = ()
-    #: a tick of this plugin runs ``ops/device_loop.run_while``, whose
-    #: library and body stream a CUDA-graph capture must find made
-    runs_device_loop: bool = False
 
     def init_db(self, cfg: Config, n_rows: int, B: int, R: int,
                 device="cpu") -> dict:

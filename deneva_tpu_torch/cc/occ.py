@@ -25,6 +25,7 @@ marks and the sharded ``group_and`` branch are outside the slice
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from deneva_tpu_torch.cc.base import AccessDecision, CCPlugin
@@ -33,6 +34,7 @@ from deneva_tpu_torch.config import Config
 from deneva_tpu_torch.engine.state import NULL_KEY, TxnState, make_entries
 from deneva_tpu_torch.ops import device_loop
 from deneva_tpu_torch.ops import segment as seg
+from deneva_tpu_torch.workloads.base import QueryPool
 
 I32 = torch.int32
 I64 = torch.int64
@@ -44,7 +46,6 @@ LOOP_SITE = "occ"
 class Occ(CCPlugin):
     name = "OCC"
     new_ts_on_restart = True     # start_ts re-drawn per attempt
-    runs_device_loop = True
 
     def init_db(self, cfg: Config, n_rows: int, B: int, R: int,
                 device="cpu") -> dict:
@@ -66,16 +67,9 @@ class Occ(CCPlugin):
 
     def validate(self, cfg: Config, db: dict, txn: TxnState, finishing,
                  tick):
-        R = txn.keys.shape[1]
-        wcommit = db["occ_wcommit"]
-        ridx = torch.arange(R, dtype=I32, device=finishing.device)[None, :]
-        valid_acc = finishing[:, None] & (ridx < txn.n_req[:, None])
-        # history check (occ.cpp:167-180): the full (B, R) gather
-        rmask = valid_acc & ~txn.is_write
-        k = torch.clamp(txn.keys, 0, wcommit.shape[0] - 1).to(I64)
-        conf = rmask & (wcommit[k] > txn.start_tick[:, None])
-        pass1 = finishing & ~conf.any(dim=1)
-        valid = _active_writer_fixed_point(txn, valid_acc, pass1)
+        valid_acc, pass1 = history_check(db, txn, finishing)
+        step, valid = make_step(txn, valid_acc, pass1)
+        device_loop.run_while(step, LOOP_SITE, pass1.device)
         measuring = tick >= cfg.warmup_ticks
         for key, failed in (("occ_hist_abort_cnt", finishing & ~pass1),
                             ("occ_active_abort_cnt", pass1 & ~valid)):
@@ -96,7 +90,22 @@ class Occ(CCPlugin):
         return db
 
 
-def _active_writer_fixed_point(txn: TxnState, valid_acc, pass1):
+def history_check(db: dict, txn: TxnState, finishing):
+    """The history check (occ.cpp:167-180), the full (B, R) gather: a
+    finishing txn fails if a committed write landed on its read set after
+    its (re)start.  Returns the finishers' accesses (B, R) and the txns
+    that pass (B,)."""
+    R = txn.keys.shape[1]
+    wcommit = db["occ_wcommit"]
+    ridx = torch.arange(R, dtype=I32, device=finishing.device)[None, :]
+    valid_acc = finishing[:, None] & (ridx < txn.n_req[:, None])
+    rmask = valid_acc & ~txn.is_write
+    k = torch.clamp(txn.keys, 0, wcommit.shape[0] - 1).to(I64)
+    conf = rmask & (wcommit[k] > txn.start_tick[:, None])
+    return valid_acc, finishing & ~conf.any(dim=1)
+
+
+def make_step(txn: TxnState, valid_acc, pass1):
     """The same-tick active-writer check (occ.cpp:185-233): txns that
     passed the history check, serialized by ts; a failed validator leaves
     the active set, so only finishers that validate block later ones.
@@ -105,7 +114,9 @@ def _active_writer_fixed_point(txn: TxnState, valid_acc, pass1):
     chain of depth <= n).  One sort of the live entries by (key, ts) gives
     the row segments; each pass moves ``valid`` into sorted order by a
     gather through the sort's ``tx`` column (the reference re-sorts on the
-    same keys), so no pass sorts."""
+    same keys), so no pass sorts.  Returns ``(step, valid)``: one pass,
+    for ``device_loop.run_while``, and the carry it updates in place,
+    which holds the verdicts once the loop ends."""
     B, R = txn.keys.shape
     dev = pass1.device
     ent_live = (valid_acc & pass1[:, None]).reshape(-1)
@@ -144,5 +155,23 @@ def _active_writer_fixed_point(txn: TxnState, valid_acc, pass1):
         conflict.zero_()
         return changed
 
-    device_loop.run_while(step, LOOP_SITE, dev)
-    return valid
+    return step, valid
+
+
+def chain_pool(n: int):
+    """A config and a hand-made pool of `n` txns that all finish in tick 2,
+    in ts order, txn i reading the row txn i-1 writes (txn 0 reads a row
+    nobody writes).  The active-writer fixed point alternates down the
+    chain: it takes n passes, and the even txns commit (n/2 for even n)."""
+    keys = np.stack([np.r_[n + 10, np.arange(n - 1)], np.arange(n)],
+                    1).astype(np.int32)
+    iw = np.zeros_like(keys, bool)
+    iw[:, 1] = True
+    pool = QueryPool(keys=keys, is_write=iw, n_req=np.full(n, 2, np.int32),
+                     home_part=np.zeros(n, np.int32),
+                     txn_type=np.zeros(n, np.int32),
+                     args=np.zeros((n, 1), np.int32))
+    kw = dict(cc_alg="OCC", batch_size=n, synth_table_size=2 * n + 16,
+              req_per_query=2, query_pool_size=n, warmup_ticks=0,
+              backoff=False)
+    return kw, pool

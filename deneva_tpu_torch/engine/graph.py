@@ -35,8 +35,8 @@ by in-place scatter-max and rebase, MVCC's rings by ``index_copy_`` as
 well) is the buffer itself.  So the state a replay returns is those
 buffers, and the next replay overwrites it.  The phase graphs share one
 memory pool: each one's intermediates die inside it, so replays in any
-order on one stream are safe.  A WHILE body allocates from a pool of its
-own, which the graphs' owner releases when it is freed.
+order on one stream are safe.  WHILE bodies allocate from a pool that
+``ops/device_loop.py`` keeps per device, by the same argument.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from deneva_tpu_torch.engine.scheduler import FLUSH_EVERY, EngineState
-from deneva_tpu_torch.ops import device_loop, fused
+from deneva_tpu_torch.ops import fused
 
 
 def state_items(state: EngineState) -> list:
@@ -65,8 +65,6 @@ class TickGraphs:
 
     def __init__(self, engine):
         self.engine = engine
-        #: the private pools of the captured WHILE bodies
-        self.body_pools: list = []
         self.static = engine.init_state()
         self.names = [k for k, _ in state_items(self.static)]
         self.buffers = [v for _, v in state_items(self.static)]
@@ -77,10 +75,6 @@ class TickGraphs:
         pool = torch.cuda.graph_pool_handle()
         self.graphs = [self._capture(p, pool) for p in range(FLUSH_EVERY)]
 
-    def __del__(self) -> None:
-        self.graphs = None
-        device_loop.release_pools(self.engine.device, self.body_pools)
-
     def _warm_up(self) -> None:
         """One tick of each phase on a side stream, the tick that is
         captured; the workload's counters are restored after it."""
@@ -89,8 +83,6 @@ class TickGraphs:
         saved = {k: v.clone() for k, v in eng.workload.counters.items()}
         if eng.cfg.fused_arbitrate:
             fused.warm()
-        if eng.plugin.runs_device_loop:
-            device_loop.warm(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -113,8 +105,6 @@ class TickGraphs:
         except RuntimeError as err:
             raise RuntimeError(f"CUDA graph capture of the tick (flush phase "
                                f"{phase}) failed: {err}") from err
-        finally:
-            self.body_pools += device_loop.take_pools()
         self.launches.append({k: v - before.get(k, 0)
                               for k, v in fused.LAUNCHES_BY_PACK.items()
                               if v != before.get(k, 0)})

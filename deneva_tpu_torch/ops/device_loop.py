@@ -16,15 +16,18 @@ it runs:
 - elsewhere (eager on CUDA, the CPU, a graph's warm-up tick), it loops on
   the host and reads the flag once per pass.
 
-The body's allocations go to a private memory pool of its own: a
-captured body runs on a stream that captures into the node's body graph,
-whose allocations the capture's own pool does not serve.  The pool must
-outlive the graph: the graph's owner takes it with ``take_pools`` and
-releases it with ``release_pools`` after the graph is gone
-(``engine/graph.py``).
+The bodies' allocations go to one private memory pool per device, held
+for the life of the process: a captured body runs on a stream that
+captures into the node's body graph, whose allocations the capture's own
+pool does not serve.  A body's intermediates die inside its pass, and
+replays run one at a time on one stream, so every body may share that
+pool (as ``engine/graph.py``'s phase graphs share theirs).
 
-Each site keeps a device pass counter (``passes``), made at the first
-call outside a capture and bumped once per pass, eager and replayed alike.
+The first call outside a capture on a CUDA device does the start-up a
+capture needs: it builds and loads the library and makes the device's
+body stream and pool.  Each site keeps a device pass counter
+(``passes``), made at the site's first call outside a capture and
+bumped once per pass, eager and replayed alike.
 ``LAUNCHES`` counts the set-condition kernel's launches: one per captured
 body, at the capture (a replay runs it once per pass, which the pass
 counter counts).  A node that fails to bind raises at capture; nothing
@@ -42,10 +45,9 @@ import torch
 LAUNCHES = 0
 #: (site, device) -> () int64 device tensor: passes run at that site
 PASSES: dict = {}
-#: device index -> the side stream that captures WHILE bodies
-_BODY_STREAMS: dict = {}
-#: private memory pools of the bodies captured since the last take_pools
-_POOLS: list = []
+#: device index -> (the side stream that captures WHILE bodies, their
+#: memory pool)
+_BODIES: dict = {}
 
 
 def reset_launches() -> None:
@@ -97,35 +99,20 @@ def build() -> dict:
     return load_library("graph_while")[1]
 
 
-def warm(device) -> None:
-    """The start-up a capture must find done on `device`: the library
-    built and loaded, and the body stream made."""
-    dev = _dev(device)
-    _lib()
-    if dev.index not in _BODY_STREAMS:
-        _BODY_STREAMS[dev.index] = torch.cuda.Stream(dev)
-
-
-def take_pools() -> list:
-    """The memory pools of the bodies captured since the last call; the
-    caller releases them once their graphs are gone."""
-    out = list(_POOLS)
-    _POOLS.clear()
-    return out
-
-
-def release_pools(device, pools) -> None:
-    for pool in pools:
-        torch._C._cuda_releasePool(_dev(device).index, pool)
-
-
 def _counter(site: str, device: torch.device) -> torch.Tensor:
+    """The site's pass counter; made, with the device's start-up, at the
+    site's first call, which must come before any capture."""
     key = (site, str(device))
     if key not in PASSES:
-        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                f"device_loop site {site!r}: its pass counter must be made "
-                "before the capture (run the loop once outside it)")
+        if device.type == "cuda":
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"device_loop site {site!r}: its pass counter must be "
+                    "made before the capture (run the loop once outside it)")
+            _lib()
+            if device.index not in _BODIES:
+                _BODIES[device.index] = (torch.cuda.Stream(device),
+                                         torch.cuda.graph_pool_handle())
         PASSES[key] = torch.zeros((), dtype=torch.int64, device=device)
     return PASSES[key]
 
@@ -138,16 +125,12 @@ def _raise_on(lib, rc: int, what: str) -> None:
 
 def _capture_while(step, counter: torch.Tensor, device: torch.device):
     global LAUNCHES
-    if device.index not in _BODY_STREAMS:
-        raise RuntimeError("graph WHILE node: device_loop.warm was not "
-                           "called before the capture")
     lib = _lib()
     cap = torch.cuda.current_stream(device)
-    body = _BODY_STREAMS[device.index]
+    body, pool = _BODIES[device.index]
     handle = ctypes.c_ulonglong()
     _raise_on(lib, lib.dn_while_begin(cap.cuda_stream, body.cuda_stream,
                                       ctypes.byref(handle)), "bind")
-    pool = torch.cuda.graph_pool_handle()
     ended = False
     try:
         with torch.cuda.stream(body):
@@ -168,7 +151,6 @@ def _capture_while(step, counter: torch.Tensor, device: torch.device):
                 LAUNCHES += 1
             finally:
                 torch._C._cuda_endAllocateToPool(device.index, pool)
-                _POOLS.append(pool)
         ended = True
         _raise_on(lib, lib.dn_while_end(body.cuda_stream), "body capture")
     finally:

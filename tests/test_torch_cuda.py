@@ -543,8 +543,8 @@ def test_occ_graph_replay_runs_the_eager_passes(dev, workload):
 def test_occ_deep_chain_replays_every_pass(dev):
     # 40 txns finishing in one tick, each reading the row the one before
     # writes: 40 passes, 20 commits, in a replay as eagerly and on the CPU
-    from chip_smoke import occ_chain
-    kw, pool = occ_chain(40)
+    from deneva_tpu_torch.cc.occ import chain_pool
+    kw, pool = chain_pool(40)
     cfg = Config(fused_arbitrate=True, **kw)
     runs = {}
     for name, device, compiled in (("cpu", "cpu", False),
@@ -567,7 +567,6 @@ def test_while_node_has_no_bound(dev):
     # a bare WHILE node: the body bumps a counter until it reaches n; one
     # captured graph runs 5, 40 and 1000 passes, and 1 when the flag is
     # false at once (the loop runs at least once)
-    device_loop.warm(dev)
     c = torch.zeros((), dtype=torch.int32, device=dev)
     n = torch.tensor(5, dtype=torch.int32, device=dev)
 
@@ -575,14 +574,13 @@ def test_while_node_has_no_bound(dev):
         c.add_(1)
         return c < n
 
-    device_loop.run_while(step, "test", dev)       # makes the counter
+    device_loop.run_while(step, "test", dev)   # the start-up, the counter
     assert int(c) == 5
     graph = torch.cuda.CUDAGraph()
     before = device_loop.LAUNCHES
     with torch.cuda.graph(graph):
         device_loop.run_while(step, "test", dev)
-    pools = device_loop.take_pools()
-    assert device_loop.LAUNCHES == before + 1 and len(pools) == 1
+    assert device_loop.LAUNCHES == before + 1
     for limit, want in ((5, 5), (40, 40), (1000, 1000), (0, 1)):
         n.fill_(limit)
         c.zero_()
@@ -591,8 +589,6 @@ def test_while_node_has_no_bound(dev):
         torch.cuda.synchronize()
         assert int(c) == want
         assert int(device_loop.passes("test", dev)) == want
-    del graph
-    device_loop.release_pools(dev, pools)
 
 
 def test_graph_replay_without_fused_kernel(dev):

@@ -23,7 +23,6 @@ from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import occ_chain  # noqa: E402
 from deneva_tpu.cc import occ as jocc  # noqa: E402
 from deneva_tpu.config import Config as JConfig  # noqa: E402
 from deneva_tpu.engine import state as jstate  # noqa: E402
@@ -171,10 +170,10 @@ def test_validate_matches_reference(seed, n_rows, p_write, p_finish, depth):
 
 @pytest.mark.parametrize("n", [1, 5, 9, 40])
 def test_chain_takes_one_pass_per_txn(n):
-    # occ_chain's pool as one finishing set: n passes (the last confirms
+    # chain_pool's pool as one finishing set: n passes (the last confirms
     # the fixed point), the even txns valid; the warm-up gate holds the
     # counters at 0 before it ends
-    kw, pool = occ_chain(n)
+    kw, pool = tocc.chain_pool(n)
     fields = dict(status=np.ones(n, np.int32), cursor=pool.n_req.copy(),
                   ts=np.arange(n, dtype=np.int32) + 1,
                   pool_idx=np.zeros(n, np.int32),
@@ -266,9 +265,9 @@ def test_duplicate_key_txns_terminate_and_commit():
 
 
 def test_forced_chain_in_the_engine():
-    # occ_chain(40): every txn finishes in tick 2, the fixed point runs 40
+    # chain_pool(40): every txn finishes in tick 2, the fixed point runs 40
     # passes there and 1 in each earlier tick, and 20 txns commit
-    kw, pool = occ_chain(40)
+    kw, pool = tocc.chain_pool(40)
     run = steps(kw, pool, [2, 1])
     _, passes = passes_of(lambda: next(run))
     assert passes == 2
