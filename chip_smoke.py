@@ -94,10 +94,28 @@ Phases, each printing one line:
      commits, no host sync in the replay; the WHILE node on a bare loop:
      exact pass counts up to 1,000 from one graph, its time per pass
      against the same kernels in a plain graph and against the host loop;
- 17. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
+ 17. MAAT: the headline_maat cell as phase 4 (2 launches per tick, its
+     chain sort and squeeze sort, 3 keys each; one host sync per pass of
+     its commit chain and none else; torch.cummax 7 times per tick plus
+     once per chain pass and nowhere else; 1 rebase launch per tick in
+     ring mode; vabort_cnt = maat_range_abort_cnt; the passes per tick),
+     the tpcc_maat cell as phase 6 (TPC-C conservation, passes + 1 host
+     syncs per eager tick) and the pps_maat cell as phase 9 (PART_AMOUNT
+     conservation); each cell's two packs captured from a tick, held
+     bit-equal to the plain version and timed as rows of their own; one
+     pass of the chain's body timed (CUDA events, in a plain graph and
+     eager) on headline_maat and tpcc_maat; MAAT's rebase on the six
+     arrays a no-op at shift 0 (uppers of 0 included) and equal to the
+     plain version at 2^30, the ring rule on maat_lr+maat_lw timed; CPU ==
+     CUDA under MAAT on the three cells (see MA_CPU_TICKS), txn slots,
+     MAAT arrays and passes included; the forced chains (MA_CHAINS: 40
+     passes and 20 commits, and at 80 txns the bound, 66 passes) on the
+     CPU, eager on CUDA and replayed; a step whose flag never clears
+     stopped at exactly 66 passes by the host loop and the WHILE node;
+ 18. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
      pps, pps_wait_die, headline_timestamp, tpcc_timestamp, headline_mvcc,
      tpcc_mvcc, headline_calvin, tpcc_calvin, pps_calvin, headline_occ,
-     tpcc_occ and pps_occ cells: 300
+     tpcc_occ, pps_occ, headline_maat, tpcc_maat and pps_maat cells: 300
      ticks eager and 300 replayed from the same initial state give equal
      summaries, data, tables, CC state (wts, rts) and effect bodies; a
      replayed tick makes 0 host syncs (sync debug mode "error");
@@ -109,16 +127,18 @@ Phases, each printing one line:
      more after the trace, the SM clock nvidia-smi samples while the
      replays run, and the peak memory of both; the packs only a captured tick sorts (the full-width
      effect body) held bit-equal to the plain version and timed; on the
-     OCC cells, the fixed point's passes of the 300 replayed ticks equal
-     the eager ticks', and OC_PASS_TICKS ticks eager and replayed from
-     the start run equal passes tick by tick (their histogram printed).
+     OCC and MAAT cells, the loop's passes of the 300 replayed ticks
+     equal the eager ticks', and OC_PASS_TICKS ticks eager and replayed
+     from the start run equal passes tick by tick (their histogram
+     printed).
 Then one JSON line of per-kernel numbers (one entry per pack of the sort
-kernel, one for CALVIN's lock sort on tpcc_calvin, one for each OCC
-cell's validation sort, one per mode of the rebase kernel at the main
-path's shift of 0, with its numbers at 2^30 under ``rebase_tick``, and
-one for the WHILE node, whose launches are the captures of its
-set-condition kernel on the OCC cells' graph path and whose replayed
-launches are the passes those replays ran; ``launches``
+kernel, MAAT's six among them, one for CALVIN's lock sort on tpcc_calvin,
+one for each OCC cell's validation sort, one per use of the rebase kernel
+(T/O's plain rule, MVCC's and MAAT's ring rule) at the main path's shift
+of 0, with its numbers at 2^30 under ``rebase_tick``, and one for the
+WHILE node, whose launches are the captures of its set-condition kernel
+on the OCC and MAAT cells' graph path and whose replayed launches are the
+passes those replays ran; ``launches``
 counts the wrapper's launches on the eager paths, and for a pack only the
 graph path sorts, its warm-up and capture; ``replayed_launches`` those the
 graph replays ran) and the final
@@ -170,16 +190,25 @@ CA_CPU_TICKS = (("headline_calvin", 20), ("tpcc_calvin", 20),
                 ("pps_calvin", 20))
 #: ticks of the CPU == CUDA checks under OCC, by cell
 OC_CPU_TICKS = (("headline_occ", 20), ("tpcc_occ", 20), ("pps_occ", 20))
+#: ticks of the CPU == CUDA checks under MAAT, by cell
+MA_CPU_TICKS = (("headline_maat", 20), ("tpcc_maat", 20), ("pps_maat", 20))
+#: MAAT's forced chains (``cc/maat.py`` ``chain_pool``): txns, the chain's
+#: passes in their tick (the bound of 66 past 66 txns) and the commits
+MA_CHAINS = ((40, 40, 20), (80, 66, 47))
+#: the six MAAT arrays
+MAAT_ARRAYS = ("maat_lr", "maat_lw", "maat_lower", "maat_upper", "maat_gw",
+               "maat_gr")
 #: the forced chain of OCC txns finishing in one tick (``chain_pool``)
 OC_CHAIN = 40
-#: OCC cells: ticks whose fixed-point passes are held equal one by one,
+#: OCC and MAAT cells: ticks whose loop passes are held equal one by one,
 #: eager against replayed
 OC_PASS_TICKS = 100
 #: cells of the graph phase, and its ticks on each path
 GRAPH_CELLS = ("headline", "tpcc", "pps", "pps_wait_die",
                "headline_timestamp", "tpcc_timestamp", "headline_mvcc",
                "tpcc_mvcc", "headline_calvin", "tpcc_calvin", "pps_calvin",
-               "headline_occ", "tpcc_occ", "pps_occ")
+               "headline_occ", "tpcc_occ", "pps_occ", "headline_maat",
+               "tpcc_maat", "pps_maat")
 GRAPH_TICKS = 300
 #: the packs a headline tick sorts, as (columns, keys, lanes, shift)
 PACK_NAMES = {
@@ -198,11 +227,19 @@ def access_packs(eng, prefix):
     sort is 2PL's pack.  MVCC's commit adds
     its version insert (key, BIG_TS - ts, ts, committed write) by 2 keys.
     OCC sorts once, to validate: (key, ts, is_write, txn) by 2 keys, with
-    no unpermute (its access grants every request and sorts nothing)."""
+    no unpermute (its access grants every request and sorts nothing).
+    MAAT sorts twice, to validate: its chain sort (key, finishing first,
+    ts, is_write, access tick, txn) and its squeeze sort (key, access
+    tick, ts, lane), both by 3 keys."""
     N = eng.cfg.batch_size * eng.pool.max_req
     if eng.plugin.name == "OCC":
         pack = (4, 2, N, 0)
         return {pack: f"{prefix} OCC validation sort"}, {pack: 1}
+    if eng.plugin.name == "MAAT":
+        chain, squeeze = (6, 3, N, 0), (4, 3, N, 0)
+        return ({chain: f"{prefix} MAAT chain sort",
+                 squeeze: f"{prefix} MAAT squeeze sort"},
+                {chain: 1, squeeze: 1})
     if eng.plugin.name in ("TIMESTAMP", "MVCC"):
         pack, name = (7, 2, N, 0), "T/O and MVCC decision sort"
     else:
@@ -429,13 +466,26 @@ def phase_kernel(fused, dev):
 
 def library_call(cols, nk):
     """One torch.sort that orders the pack as the kernel does: by the key
-    itself, or by two int32 keys packed into one int64 (both stable)."""
+    itself, or by two int32 keys packed into one int64, or by three keys
+    packed into one int64 with each key less its minimum in as many bits
+    as its range takes (all stable); None for three keys whose ranges
+    take more than 63 bits."""
     if nk == 1:
         return lambda: torch.sort(cols[0], stable=True)
-    assert nk == 2
-    return lambda: torch.sort((cols[0].to(torch.int64) << 32)
-                              | (cols[1].to(torch.int64) & 0xFFFFFFFF),
-                              stable=True)
+    if nk == 2:
+        return lambda: torch.sort((cols[0].to(torch.int64) << 32)
+                                  | (cols[1].to(torch.int64) & 0xFFFFFFFF),
+                                  stable=True)
+    assert nk == 3
+    lows = [int(c.min().item()) for c in cols[:3]]
+    bits = [max(1, (int(c.max().item()) - lo).bit_length())
+            for c, lo in zip(cols[:3], lows)]
+    if sum(bits) > 63:
+        return None
+    return lambda: torch.sort(
+        ((cols[0].to(torch.int64) - lows[0]) << (bits[1] + bits[2]))
+        | ((cols[1].to(torch.int64) - lows[1]) << bits[2])
+        | (cols[2].to(torch.int64) - lows[2]), stable=True)
 
 
 def measure_pack(fused, name, cols, nk, shift):
@@ -466,43 +516,85 @@ def measure_pack(fused, name, cols, nk, shift):
                              "per call; expected 1 and 1")
     plain_ms = cuda_ms(lambda: fused.fused_sort_scan_plain(cols, nk, shift))
     lib_fn = library_call(cols, nk)
-    library_ms = cuda_ms(lib_fn)
-    library_dev_ms = device_ms(lib_fn)[0]
+    library_ms = cuda_ms(lib_fn) if lib_fn else None
+    library_dev_ms = device_ms(lib_fn)[0] if lib_fn else None
     say("kernel", f"{name} n={n} shift={shift}: launch plan "
         f"grid={plan['grid']} blocks x {plan['threads']} threads, tile="
         f"{plan['tile']} records ({plan['tiles']} tiles), merge "
         f"levels={plan['levels']}, chunk={plan['chunk']}")
+    lib = (f"torch.sort {library_ms:.4f} ms ({library_dev_ms:.4f} ms on "
+           "the device)" if lib_fn else "no one torch.sort (keys wider "
+           "than 63 bits)")
     say("kernel", f"{name}: bit-equal, kernel {ms:.4f} ms per call "
         f"({dev_ms:.4f} ms of it on the device in {dev_launches:g} "
         f"device kernel per call, torch.profiler), plain "
-        f"{plain_ms:.4f} ms, torch.sort {library_ms:.4f} ms "
-        f"({library_dev_ms:.4f} ms on the device), bound {bms:.5f} ms "
-        f"({by})")
+        f"{plain_ms:.4f} ms, {lib}, bound {bms:.5f} ms ({by})")
     return dict(err=err, ms=ms, device_ms=dev_ms,
                 device_launches=dev_launches, plain_ms=plain_ms,
                 library_ms=library_ms, library_device_ms=library_dev_ms,
                 bound_ms=bms, bound_by=by)
 
 
+#: the device_loop site of each plugin whose tick runs a device loop:
+#: OCC's fixed point and MAAT's commit chain (``cc/occ.py``,
+#: ``cc/maat.py`` LOOP_SITE)
+LOOP_SITES = {"OCC": "occ", "MAAT": "maat"}
+#: MAAT's segmented min/max scans that run torch.cummax: 7 per tick (the
+#: squeeze's) and 1 per pass of its chain (the reader cap's prefix min)
+MAAT_CUMMAX = (7, 1)
+
+
 def runs_loop(eng) -> bool:
-    """Whether a tick of `eng` runs OCC's fixed point
-    (``device_loop.run_while``)."""
-    return eng.plugin.name == "OCC"
+    """Whether a tick of `eng` runs a device loop
+    (``device_loop.run_while``): OCC's fixed point, MAAT's chain."""
+    return eng.plugin.name in LOOP_SITES
 
 
 def loop_passes(eng) -> int:
-    """The passes OCC's fixed point has run on the engine's device since
-    the counters were last reset (0 for a plugin with no device loop)."""
-    from deneva_tpu_torch.cc.occ import LOOP_SITE
+    """The passes the tick's device loop has run on the engine's device
+    since the counters were last reset (0 for a plugin with no loop)."""
     from deneva_tpu_torch.ops import device_loop
     if not runs_loop(eng):
         return 0
-    return int(device_loop.passes(LOOP_SITE, eng.device).item())
+    return int(device_loop.passes(LOOP_SITES[eng.plugin.name],
+                                  eng.device).item())
+
+
+def trace_ticks(name, eng, tick, expect_sort):
+    """A torch.profiler trace of TRACE_TICKS calls of `tick`
+    (``profile_tick.trace_kernels``, `expect_sort` passed on), the device
+    loop's passes of each traced tick read after it.  The torch.cummax
+    launches per tick must be MAAT's counted scan sites (MAAT_CUMMAX, with
+    the traced passes) on a MAAT cell and 0 on every other; a trace that
+    shows another count is taken again, up to 5 traces in all (a trace
+    can gain kernels of its warm-up step, as ``trace_kernels`` says), and
+    the last one must match.  Returns the per-tick breakdown, the passes
+    per tick and the traces taken."""
+    from deneva_tpu_torch.profile_tick import breakdown, trace_kernels
+    per_pass = []
+
+    def traced():
+        p0 = loop_passes(eng)
+        tick()
+        per_pass.append(loop_passes(eng) - p0)
+
+    for traces in range(1, 6):
+        per = breakdown(trace_kernels(traced, TRACE_TICKS, expect_sort),
+                        TRACE_TICKS)
+        passes = sum(per_pass[-TRACE_TICKS:]) / TRACE_TICKS
+        want = 0
+        if eng.plugin.name == "MAAT":
+            want = MAAT_CUMMAX[0] + MAAT_CUMMAX[1] * passes
+        if round(per["cummax_launches"], 6) == round(want, 6):
+            return per, passes, traces
+    raise AssertionError(f"the {name} tick runs {per['cummax_launches']} "
+                         f"torch.cummax per tick, expected {want} ({traces} "
+                         "traces)")
 
 
 def loop_syncs(eng, tick, n_ticks, want_other, other_files):
     """Host syncs of `n_ticks` calls of `tick` (CUDA sync debug mode): the
-    flag reads of the fixed point's host loop (one per pass, at
+    flag reads of the device loop's host loop (one per pass, at
     ``device_loop.py``) plus `want_other` per tick at lines of
     `other_files`; raises on any other count or site.  Returns the syncs
     and passes per tick and the sites."""
@@ -514,7 +606,7 @@ def loop_syncs(eng, tick, n_ticks, want_other, other_files):
     if round(syncs, 6) != round(passes + want_other, 6) or not all(
             k.split(":")[0] in files for k in sites):
         raise AssertionError(f"expected {want_other} host reads per tick "
-                             f"and {passes} fixed-point flag reads, saw "
+                             f"and {passes} loop flag reads, saw "
                              f"{syncs} at {sites}")
     return syncs, passes, sites
 
@@ -522,39 +614,38 @@ def loop_syncs(eng, tick, n_ticks, want_other, other_files):
 def phase_trace(eng, state, name="headline", per_tick=2):
     """A torch.profiler trace of TRACE_TICKS ticks of a YCSB cell: the
     kernel's device launches per tick (`per_tick`) and the cummax kernels
-    left in the tick; then the same ticks under the CUDA sync debug mode:
-    no host sync, but for one flag read per pass of OCC's fixed point.
+    (``trace_ticks``); then the same ticks under the CUDA sync debug mode:
+    no host sync, but for one flag read per pass of the device loop.
     Returns the state after them."""
-    from deneva_tpu_torch.profile_tick import breakdown, trace_kernels
     box = [state]
 
     def tick():
         box[0] = eng.tick(box[0])
 
-    per = breakdown(trace_kernels(tick, TRACE_TICKS, per_tick * TRACE_TICKS),
-                    TRACE_TICKS)
+    per, passes, traces = trace_ticks(name, eng, tick,
+                                      per_tick * TRACE_TICKS)
     say("trace", f"{TRACE_TICKS} {name} ticks (torch.profiler): "
         f"{per['kernel_launches']:.1f} device launches per tick, device "
         f"busy {per['device_busy_us']:.1f} us per tick, fused kernel "
         f"{per['fused_sort_scan_launches']:g} launches per tick, cummax "
-        f"kernels {per['cummax_launches']:g} per tick")
+        f"kernels {per['cummax_launches']:g} per tick ({passes:g} loop "
+        f"passes per tick; {traces} traces)")
     if per["fused_sort_scan_launches"] != per_tick:
         raise AssertionError(f"{per['fused_sort_scan_launches']} fused "
                              "kernel launches per traced tick, expected "
                              f"{per_tick}")
-    if per["cummax_launches"]:
-        raise AssertionError(f"the {name} tick still runs torch.cummax")
     syncs, passes, sites = loop_syncs(eng, tick, TRACE_TICKS, 0, ())
     say("trace", f"{TRACE_TICKS} {name} ticks (CUDA sync debug mode): "
         f"{syncs:g} host syncs per tick at {sites or 'no line'} "
-        f"({passes:g} fixed-point passes per tick)")
+        f"({passes:g} loop passes per tick)")
     return box[0]
 
 
 def phase_headline(cells, Engine, timed_run, fused, dev, name="headline"):
     """The YCSB cell `name` on the card: HEADLINE_TICKS ticks in timed
     windows, the sort kernel's launches per tick (2, 3 under MVCC, 1
-    under OCC), OCC's fixed-point passes, no fallback, the increment
+    under OCC), the device loop's passes (OCC, MAAT), no fallback, the
+    increment
     oracle and a traced window.  Returns the
     engine, the state after the traced ticks, the sort kernel's launches
     by pack and the rebase kernel's launches by rule over the timed
@@ -595,7 +686,7 @@ def phase_headline(cells, Engine, timed_run, fused, dev, name="headline"):
         f" abort_rate={s['abort_rate']:.6f} peak_mem_mb={peak / 2**20:.1f}")
     say(name, f"kernel launches={launches} by pack={by_pack} "
         f"fallbacks={snap['count']}; rebase kernel launches="
-        f"{rebase_launches}; fixed-point passes={passes} "
+        f"{rebase_launches}; loop passes={passes} "
         f"({passes / HEADLINE_TICKS:g} per tick)")
     _, every = access_packs(eng, name)
     per_tick = sum(every.values())
@@ -728,7 +819,7 @@ def run_effect_cell(cells, name, Engine, timed_run, fused, dev, packs_fn,
     c, f = branch["compact"], branch["full"]
     say(name, f"effect bodies: compact={c} full={f} ticks; kernel launches="
         f"{launches} ({launches / ticks:g} per tick), fallbacks="
-        f"{snap['count']}; fixed-point passes={passes} "
+        f"{snap['count']}; loop passes={passes} "
         f"({passes / ticks:g} per tick)")
     for pack, cnt in sorted(by_pack.items()):
         say(name, f"  {names.get(pack, pack)} {pack}: {cnt} "
@@ -754,10 +845,10 @@ def trace_cell(name, eng, state, fused, want_syncs, sync_files):
     """A traced window of the cell's ticks: the kernel's device launches
     per tick equal the wrapper's count over the same ticks; then the host
     syncs of a tick (CUDA sync debug mode) must be `want_syncs`, all at
-    lines of the files `sync_files`, plus one flag read per pass of OCC's
-    fixed point.  Returns the packs of one more tick, captured, and the
+    lines of the files `sync_files`, plus one flag read per pass of the
+    device loop (OCC, MAAT), and its cummax launches those of
+    ``trace_ticks``.  Returns the packs of one more tick, captured, and the
     trace's per-tick numbers; flushes the state."""
-    from deneva_tpu_torch.profile_tick import breakdown, trace_kernels
     box, per_call = [state], []
 
     def tick():
@@ -765,24 +856,24 @@ def trace_cell(name, eng, state, fused, want_syncs, sync_files):
         box[0] = eng.tick(box[0])
         per_call.append(fused.LAUNCHES - n0)
 
-    per = breakdown(trace_kernels(tick, TRACE_TICKS,
-                                  lambda: sum(per_call[-TRACE_TICKS:])),
-                    TRACE_TICKS)
+    per, passes, traces = trace_ticks(
+        name, eng, tick, lambda: sum(per_call[-TRACE_TICKS:]))
     counted = sum(per_call[-TRACE_TICKS:]) / TRACE_TICKS
     say("trace", f"{TRACE_TICKS} {name} ticks (torch.profiler): "
         f"{per['kernel_launches']:.1f} device launches per tick, device "
         f"busy {per['device_busy_us']:.1f} us per tick, fused kernel "
         f"{per['fused_sort_scan_launches']:g} launches and "
         f"{per['fused_sort_scan_us']:.1f} us per tick (wrapper count "
-        f"{counted:g}), cummax kernels {per['cummax_launches']:g} per tick")
+        f"{counted:g}), cummax kernels {per['cummax_launches']:g} per tick "
+        f"({passes:g} loop passes per tick; {traces} traces)")
     if per["fused_sort_scan_launches"] != counted:
         raise AssertionError("traced kernel launches per tick != the "
                              "wrapper's count")
     syncs, passes, sites = loop_syncs(eng, tick, TRACE_TICKS, want_syncs,
                                       sync_files)
     say("trace", f"{TRACE_TICKS} {name} ticks (CUDA sync debug mode): "
-        f"{syncs:g} host syncs per tick at {sites} ({passes:g} fixed-point "
-        "passes per tick)")
+        f"{syncs:g} host syncs per tick at {sites} ({passes:g} loop passes "
+        "per tick)")
     per["passes"] = passes
     packs = capture_packs(fused, tick)
     eng._flush_body(box[0])
@@ -860,12 +951,9 @@ def phase_wait_die(cells, Engine, timed_run, fused, dev):
         PPS_TICKS, part_amount_sum)
     if not rec["s"]["twopl_wait_cnt"] > 0:
         raise AssertionError("no WAIT decision in the pps_wait_die run")
-    _, per = trace_cell("pps_wait_die", eng, state, fused, 1, ("base.py",))
-    say("pps_wait_die", f"torch.cummax launches per tick: "
-        f"{per['cummax_launches']:g} (WAIT_DIE's minimum held ts is a "
-        "gather)")
-    if per["cummax_launches"]:
-        raise AssertionError("the pps_wait_die tick still runs torch.cummax")
+    # trace_cell holds the tick to 0 torch.cummax (WAIT_DIE's minimum held
+    # ts is a gather)
+    trace_cell("pps_wait_die", eng, state, fused, 1, ("base.py",))
     return eng.pool
 
 
@@ -1068,10 +1156,6 @@ def phase_mvcc(cells, Engine, timed_run, fused, rebase, dev, rows, names,
         measure_captured(fused, rows, new, cell_names, names, cell)
         by_pack.update({p: counted.get(p, 0) for p in new})
 
-    def no_cummax(name, per):
-        if per["cummax_launches"]:
-            raise AssertionError(f"the {name} tick runs torch.cummax")
-
     # the rebase kernel runs twice on every tick: the rings in ring mode,
     # rts0 and w_floor in plain mode
     eng, state, hb, rebase_launches = phase_headline(
@@ -1109,8 +1193,7 @@ def phase_mvcc(cells, Engine, timed_run, fused, rebase, dev, rows, names,
         raise AssertionError("not every tpcc_mvcc tick ran its effect body "
                              "once")
     # the one host read of an eager tick (its compact/full choice)
-    packs, per = trace_cell("tpcc_mvcc", eng, state, fused, 1, ("base.py",))
-    no_cummax("tpcc_mvcc", per)
+    packs, _ = trace_cell("tpcc_mvcc", eng, state, fused, 1, ("base.py",))
     measure_new(packs, rec["names"], "tpcc_mvcc", rec["by_pack"])
     del eng, state
 
@@ -1148,10 +1231,6 @@ def phase_calvin(cells, Engine, timed_run, fused, dev, pps_pool):
             raise AssertionError(f"the {name} run aborted: CALVIN never "
                                  "aborts")
 
-    def no_cummax(name, per):
-        if per["cummax_launches"]:
-            raise AssertionError(f"the {name} tick runs torch.cummax")
-
     eng, state, _, rebase_launches = phase_headline(
         cells, Engine, timed_run, fused, dev, "headline_calvin")
     if rebase_launches:
@@ -1172,10 +1251,9 @@ def phase_calvin(cells, Engine, timed_run, fused, dev, pps_pool):
     say("tpcc_calvin", f"conservation holds ({', '.join(laws)}): "
         f"{payments} Payments, {neworders} NewOrders")
     # the one host read of an eager tick (its compact/full choice)
-    packs, per = trace_cell("tpcc_calvin", eng, state, fused, 1,
+    packs, _ = trace_cell("tpcc_calvin", eng, state, fused, 1,
                             ("base.py",))
     no_abort("tpcc_calvin", rec["s"])
-    no_cummax("tpcc_calvin", per)
     lock = (3, 2, eng.cfg.batch_size * eng.pool.max_req, 1)
     row = measure_pack(fused, "tpcc_calvin lock sort", packs[lock], 2, 1)
     row.update(pack=lock, launches=rec["by_pack"][lock])
@@ -1192,9 +1270,8 @@ def phase_calvin(cells, Engine, timed_run, fused, dev, pps_pool):
     if not (orders > 0 and s["recon_cnt"] > 0):
         raise AssertionError("the pps_calvin run deferred no recon txn or "
                              "committed no ORDERPRODUCT")
-    _, per = trace_cell("pps_calvin", eng, state, fused, 1, ("base.py",))
+    trace_cell("pps_calvin", eng, state, fused, 1, ("base.py",))
     no_abort("pps_calvin", s)
-    no_cummax("pps_calvin", per)
     del eng, state
 
     for name, ticks in CA_CPU_TICKS:
@@ -1239,8 +1316,8 @@ def loop_step(eng, state):
     return step
 
 
-def measure_body_pass(name, step):
-    """One pass of the fixed point's body on a live tick's entries (it has
+def measure_body_pass(name, step, label="occ"):
+    """One pass of a device loop's body on a live tick's entries (it has
     converged, so a pass changes nothing): CUDA events over 50 eager
     passes, and over a plain graph of 20 passes, with the graph's device
     time and kernels per pass (torch.profiler)."""
@@ -1251,7 +1328,7 @@ def measure_body_pass(name, step):
             step()
     graph_ms = cuda_ms(graph.replay, reps=20) / 20
     busy_ms, kernels, _ = device_ms(graph.replay, reps=5)
-    say("occ", f"{name}: one pass of the fixed point's body {graph_ms:.4f} "
+    say(label, f"{name}: one pass of the loop's body {graph_ms:.4f} "
         f"ms in a graph ({busy_ms / 20 * 1e3:.1f} us on the device in "
         f"{kernels / 20:g} kernels, torch.profiler), {eager_ms:.4f} ms eager "
         "(cuda events)")
@@ -1347,10 +1424,6 @@ def phase_occ(cells, Engine, timed_run, fused, dev, pps_pool):
     from deneva_tpu_torch.ops import device_loop
     from deneva_tpu_torch.workloads import pps, tpcc
 
-    def no_cummax(name, per):
-        if per["cummax_launches"]:
-            raise AssertionError(f"the {name} tick runs torch.cummax")
-
     def validation_row(name, eng, packs, counted):
         pack = (4, 2, eng.cfg.batch_size * eng.pool.max_req, 0)
         row = measure_pack(fused, f"{name} validation sort", packs[pack], 2,
@@ -1382,8 +1455,7 @@ def phase_occ(cells, Engine, timed_run, fused, dev, pps_pool):
         f"Payments, {neworders} NewOrders")
     check_occ_counts("tpcc_occ", rec["s"])
     # the effect step's host read and one flag read per pass
-    packs, per = trace_cell("tpcc_occ", eng, state, fused, 1, ("base.py",))
-    no_cummax("tpcc_occ", per)
+    packs, _ = trace_cell("tpcc_occ", eng, state, fused, 1, ("base.py",))
     rows["tpcc_occ"] = validation_row("tpcc_occ", eng, packs, rec["by_pack"])
     body = measure_body_pass("tpcc_occ", loop_step(eng, state))
     del eng, state
@@ -1396,8 +1468,7 @@ def phase_occ(cells, Engine, timed_run, fused, dev, pps_pool):
     say("pps_occ", f"PART_AMOUNT conserved: {orders} ORDERPRODUCT part "
         f"writes, {upd} UPDATEPART commits")
     check_occ_counts("pps_occ", rec["s"])
-    packs, per = trace_cell("pps_occ", eng, state, fused, 1, ("base.py",))
-    no_cummax("pps_occ", per)
+    packs, _ = trace_cell("pps_occ", eng, state, fused, 1, ("base.py",))
     rows["pps_occ"] = validation_row("pps_occ", eng, packs, rec["by_pack"])
     del eng, state
 
@@ -1417,22 +1488,25 @@ def phase_occ(cells, Engine, timed_run, fused, dev, pps_pool):
                                  f"{bad}, passes {pg} != {pc}")
         del cpu, sc, gpu, sg
 
-    phase_occ_chain(Engine, dev)
+    from deneva_tpu_torch.cc.occ import chain_pool
+    phase_forced_chain(Engine, dev, chain_pool, OC_CHAIN, OC_CHAIN,
+                       OC_CHAIN // 2, "occ")
     rec = measure_while(dev)
     rec["body"] = body
     return rows, rec
 
 
-def phase_occ_chain(Engine, dev):
-    """The forced chain (``chain_pool``): OC_CHAIN txns finishing in tick 2,
-    run on the CPU, eagerly on CUDA and as graph replays: OC_CHAIN passes
-    in tick 2 (1 in each earlier tick), OC_CHAIN / 2 commits, and equal
+def phase_forced_chain(Engine, dev, chain_pool, n, want_passes,
+                       want_commits, label):
+    """A forced chain (``chain_pool(n)``: n txns finishing in tick 2, each
+    reading the row the one before writes), run on the CPU, eagerly on
+    CUDA and as graph replays: `want_passes` passes of the device loop in
+    tick 2 (1 in each earlier tick), `want_commits` commits, and equal
     summaries and data; the replayed tick reads nothing on the host."""
-    from deneva_tpu_torch.cc.occ import chain_pool
     from deneva_tpu_torch.config import Config
     from deneva_tpu_torch.ops import device_loop
     from deneva_tpu_torch.profile_tick import host_syncs
-    kw, pool = chain_pool(OC_CHAIN)
+    kw, pool = chain_pool(n)
     cfg = Config(fused_arbitrate=True, **kw)
     runs = {}
     for name, device, compiled in (("cpu", "cpu", False),
@@ -1455,19 +1529,210 @@ def phase_occ_chain(Engine, dev):
         state = eng._flush_body(box[0])
         runs[name] = (per_tick, eng.summary(state), state.data.cpu())
         del eng, state, box
-    want = [1, 1, OC_CHAIN]
+    want = [1, 1, want_passes]
     for name, (per_tick, s, data) in runs.items():
-        if per_tick != want or s["txn_cnt"] != OC_CHAIN // 2 \
+        if per_tick != want or s["txn_cnt"] != want_commits \
                 or s != runs["cpu"][1] or not torch.equal(data,
                                                           runs["cpu"][2]):
             raise AssertionError(f"forced chain, {name}: passes per tick "
                                  f"{per_tick} (want {want}), txn_cnt "
                                  f"{s['txn_cnt']}, or not equal to the CPU")
-    say("occ", f"forced chain of {OC_CHAIN} txns finishing in one tick: "
-        f"passes per tick {want} and {OC_CHAIN // 2} commits on the CPU, "
-        "eagerly on CUDA and in CUDA-graph replays (the WHILE node, 0 host "
-        f"syncs in the chain's replayed tick: {syncs:g}); summaries and "
-        "data equal")
+    say(label, f"forced chain of {n} txns finishing in one tick: passes per "
+        f"tick {want} and {want_commits} commits on the CPU, eagerly on "
+        "CUDA and in CUDA-graph replays (the WHILE node, 0 host syncs in "
+        f"the chain's replayed tick: {syncs:g}); summaries and data equal")
+
+
+def check_maat_counts(name, s):
+    """Every MAAT abort is a validation whose range emptied; prints the six
+    counters."""
+    say(name, f"vabort_cnt={s['vabort_cnt']} = maat_range_abort_cnt="
+        f"{s['maat_range_abort_cnt']} = total_txn_abort_cnt="
+        f"{s['total_txn_abort_cnt']}; abort_rate={s['abort_rate']:.6f}; "
+        f"maat_case1_cnt={s['maat_case1_cnt']} maat_case3_cnt="
+        f"{s['maat_case3_cnt']} maat_chain_cap_cnt="
+        f"{s['maat_chain_cap_cnt']} maat_chain_push_cnt="
+        f"{s['maat_chain_push_cnt']} maat_chain_overflow_cnt="
+        f"{s['maat_chain_overflow_cnt']}")
+    if not (s["vabort_cnt"] == s["maat_range_abort_cnt"]
+            == s["total_txn_abort_cnt"] > 0):
+        raise AssertionError(f"{name}: MAAT's abort counters do not add up")
+
+
+def maat_chain_step(eng, state):
+    """One pass of MAAT's commit chain (``cc/maat.py`` ``make_chain``) on
+    the entries of the txns of `state` that finish in its next tick (user
+    aborts aside); run to its end first, so a pass changes nothing."""
+    from deneva_tpu_torch.cc import maat
+    from deneva_tpu_torch.engine.state import STATUS_RUNNING
+    txn = state.txn
+    finishing = (txn.status == STATUS_RUNNING) & (txn.cursor >= txn.n_req)
+    step = maat.make_chain(eng.cfg, state.db, txn, finishing).step
+    while bool(step()):
+        pass
+    return step
+
+
+def check_maat_rebase(eng, state, rebase, dev):
+    """MAAT's rebase (``Maat.on_ts_rebase``) on a copy of the cell's six
+    arrays, with uppers of 0 among them (those the run left, and the first
+    eight slots set to 0): at the shift of a tick that does not rebase (0)
+    every array stays as it was; at 2^30 the CUDA path (the rebase
+    kernel's ring rule on the rows) equals the CPU path (the plain
+    version) on a host copy.  Restores the rebase kernel's launch
+    counter."""
+    before = dict(rebase.LAUNCHES)
+    db = {k: state.db[k].clone() for k in MAAT_ARRAYS}
+    natural = int((db["maat_upper"] == 0).sum().item())
+    db["maat_upper"][:8] = 0
+    for shift in (0, 2**30):
+        got = {k: v.clone() for k, v in db.items()}
+        want = {k: v.cpu() for k, v in db.items()}
+        eng.plugin.on_ts_rebase(eng.cfg, got, torch.tensor(
+            shift, dtype=torch.int64, device=dev))
+        eng.plugin.on_ts_rebase(eng.cfg, want, torch.tensor(
+            shift, dtype=torch.int64))
+        ref = db if shift == 0 else want
+        bad = [k for k in MAAT_ARRAYS
+               if not torch.equal(got[k].cpu(), ref[k].cpu())]
+        if bad:
+            raise AssertionError(f"MAAT rebase at shift {shift}: {bad} "
+                                 + ("changed" if shift == 0 else
+                                    "differ from the plain version"))
+        del got, want
+    rebase.LAUNCHES.clear()
+    rebase.LAUNCHES.update(before)
+    say("rebase", f"MAAT's six arrays: shift 0 leaves every one as it was "
+        f"({natural} uppers of 0 from the run and 8 more set to 0 stay 0); "
+        "shift 2^30 on CUDA equals the plain version on the CPU")
+
+
+def check_maat_bound(dev):
+    """MAAT's chain flag on a step that always changes something: the host
+    loop and one captured WHILE node stop it after exactly 66 passes, and
+    after 1 with no row of two validators.  Restores the set-condition
+    kernel's launch counter."""
+    from deneva_tpu_torch.cc import maat
+    from deneva_tpu_torch.ops import device_loop
+    passes = torch.zeros((), dtype=torch.int32, device=dev)
+    needed = torch.ones((), dtype=torch.bool, device=dev)
+    changed = torch.ones((), dtype=torch.bool, device=dev)
+
+    def step():
+        passes.add_(1)
+        return maat.flag(needed, passes, changed)
+
+    device_loop.run_while(step, "smoke_maat", dev)
+    got = [int(passes.item())]
+    launches = device_loop.LAUNCHES
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        device_loop.run_while(step, "smoke_maat", dev)
+    device_loop.LAUNCHES = launches
+    for need in (True, False):
+        needed.fill_(need)
+        passes.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        got.append(int(passes.item()))
+    del graph
+    want = [maat.MAX_PASSES, maat.MAX_PASSES, 1]
+    if got != want:
+        raise AssertionError(f"MAAT's chain bound: passes {got}, want {want} "
+                             "(host loop, WHILE node, no chain)")
+    say("maat", f"a step whose flag never clears: {got[0]} passes in the "
+        f"host loop, {got[1]} in the WHILE node; {got[2]} when no row has "
+        "two validators")
+
+
+def phase_maat(cells, Engine, timed_run, fused, rebase, dev, rows, names,
+               by_pack, pps_pool):
+    """MAAT on the card (phase 17 of the module docstring).  Its two packs
+    on each cell, captured from a live tick, are held to the plain version
+    and timed into `rows`, named in `names`, with their launches on the
+    cell's timed ticks in `by_pack`.  Returns the ring-mode rebase record
+    on maat_lr+maat_lw (``measure_rebase``) with its launches on the
+    headline_maat run, and one chain pass's time on headline_maat and
+    tpcc_maat (``measure_body_pass``)."""
+    from deneva_tpu_torch.cc.maat import chain_pool
+    from deneva_tpu_torch.ops import device_loop
+    from deneva_tpu_torch.workloads import pps, tpcc
+
+    def measure_new(packs, cell_names, cell, counted):
+        new = {p: c for p, c in packs.items() if p not in rows}
+        names.update(cell_names)
+        measure_captured(fused, rows, new, cell_names, names, cell)
+        by_pack.update({p: counted.get(p, 0) for p in new})
+
+    body = {}
+    # phase_trace checks 2 launches per tick, the cummax launches and one
+    # host sync per pass of the chain
+    eng, state, hb, rebase_launches = phase_headline(
+        cells, Engine, timed_run, fused, dev, "headline_maat")
+    if rebase_launches != {"ring": HEADLINE_TICKS}:
+        raise AssertionError(f"{rebase_launches} rebase kernel launches on "
+                             f"{HEADLINE_TICKS} headline_maat ticks, "
+                             "expected 1 per tick in ring mode")
+    check_maat_counts("headline_maat", eng.summary(state))
+    body["headline_maat"] = measure_body_pass(
+        "headline_maat", maat_chain_step(eng, state), "maat")
+    acc_names, _ = access_packs(eng, "headline")
+    measure_new(capture_packs(fused, lambda: eng.tick(state)),
+                {**PACK_NAMES, **acc_names}, "headline_maat", hb)
+    check_maat_rebase(eng, state, rebase, dev)
+    reb = measure_rebase(rebase, state.db["maat_lr"], state.db["maat_lw"],
+                         dev, "maat_lr+maat_lw", ring=True)
+    reb["launches"] = rebase_launches["ring"]
+    del eng, state
+
+    eng, state, init, rec = run_effect_cell(
+        cells, "tpcc_maat", Engine, timed_run, fused, dev, tpcc_packs,
+        TPCC_TICKS, tpcc.checksums)
+    payments, neworders, laws = check_tpcc_conservation(
+        tpcc, eng.cfg, init, state.tables, rec["s"])
+    say("tpcc_maat", f"conservation holds ({', '.join(laws)}): {payments} "
+        f"Payments, {neworders} NewOrders")
+    check_maat_counts("tpcc_maat", rec["s"])
+    # the effect step's host read and one flag read per pass
+    packs, _ = trace_cell("tpcc_maat", eng, state, fused, 1, ("base.py",))
+    measure_new(packs, rec["names"], "tpcc_maat", rec["by_pack"])
+    body["tpcc_maat"] = measure_body_pass(
+        "tpcc_maat", maat_chain_step(eng, state), "maat")
+    del eng, state
+
+    eng, state, amount0, rec = run_effect_cell(
+        cells, "pps_maat", Engine, timed_run, fused, dev, pps_packs,
+        PPS_TICKS, part_amount_sum)
+    orders, upd = check_pps_conservation(pps, eng.cfg, eng.pool, amount0,
+                                         state)
+    say("pps_maat", f"PART_AMOUNT conserved: {orders} ORDERPRODUCT part "
+        f"writes, {upd} UPDATEPART commits")
+    check_maat_counts("pps_maat", rec["s"])
+    packs, _ = trace_cell("pps_maat", eng, state, fused, 1, ("base.py",))
+    measure_new(packs, rec["names"], "pps_maat", rec["by_pack"])
+    del eng, state
+
+    for name, ticks in MA_CPU_TICKS:
+        device_loop.reset_passes()
+        _, cpu, sc, gpu, sg = phase_cpu_equal(
+            cells, name, Engine, dev, ticks,
+            pool=pps_pool if name == "pps_maat" else None)
+        bad = [f for f in sc.txn._fields
+               if not torch.equal(getattr(sg.txn, f).cpu(),
+                                  getattr(sc.txn, f))]
+        pg, pc = loop_passes(gpu), loop_passes(cpu)
+        say("cpu", f"{name}: CUDA and CPU txn slots and the six MAAT arrays "
+            f"equal; chain passes {pg} on CUDA, {pc} on the CPU")
+        if bad or pg != pc:
+            raise AssertionError(f"{name}: CUDA and CPU differ: txn slots "
+                                 f"{bad}, passes {pg} != {pc}")
+        del cpu, sc, gpu, sg
+
+    for n, passes, commits in MA_CHAINS:
+        phase_forced_chain(Engine, dev, chain_pool, n, passes, commits,
+                           "maat")
+    check_maat_bound(dev)
+    return reb, body
 
 
 def graph_packs(eng):
@@ -1593,7 +1858,7 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
         raise AssertionError(f"{name}: the graph run broke the oracle or "
                              "committed nothing")
     if eager_passes != graph_passes:
-        raise AssertionError(f"{name}: {eager_passes} fixed-point passes "
+        raise AssertionError(f"{name}: {eager_passes} loop passes "
                              f"eager, {graph_passes} replayed")
 
     # launches: eager by the bodies taken; a replay by its graph's capture
@@ -1670,17 +1935,17 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
         f"{eager_peak:.1f} MB eager, {graph_peak:.1f} MB graph (static "
         "buffers and the phase graphs' pool)")
     if runs_loop(eng):
-        occ_passes_per_tick(name, eng, per, graph_passes)
+        loop_passes_per_tick(name, eng, per, graph_passes)
     return dict(packs=packs, names=names, counted=counted,
                 replayed=replayed, passes=graph_passes)
 
 
-def occ_passes_per_tick(name, eng, per, graph_passes):
-    """An OCC cell's fixed point in the graph phase: the passes of the
-    timed windows, the set-condition kernels the replay trace shows, and
-    OC_PASS_TICKS ticks from the initial state, eager and replayed, whose
-    passes are read after each tick and must be equal one by one; prints
-    their histogram."""
+def loop_passes_per_tick(name, eng, per, graph_passes):
+    """The device loop of an OCC or MAAT cell in the graph phase: the
+    passes of the timed windows, the set-condition kernels the replay
+    trace shows, and OC_PASS_TICKS ticks from the initial state, eager
+    and replayed, whose passes are read after each tick and must be equal
+    one by one; prints their histogram."""
     runs = {}
     for compiled in (False, True):
         state = eng.advance(0, eng.init_state(), compiled=compiled)
@@ -1693,10 +1958,10 @@ def occ_passes_per_tick(name, eng, per, graph_passes):
         runs[compiled] = per_tick
         del state
     if runs[False] != runs[True]:
-        raise AssertionError(f"{name}: fixed-point passes per tick differ: "
+        raise AssertionError(f"{name}: loop passes per tick differ: "
                              f"eager {runs[False]}, replayed {runs[True]}")
     hist = {d: runs[True].count(d) for d in sorted(set(runs[True]))}
-    say("graph", f"{name}: fixed-point passes {graph_passes} over the "
+    say("graph", f"{name}: loop passes {graph_passes} over the "
         f"{GRAPH_TICKS} replayed ticks ({graph_passes / GRAPH_TICKS:g} per "
         f"tick), as many as eager; the replay trace shows "
         f"{per['while_set_launches']:g} set-condition kernels per tick; "
@@ -1773,6 +2038,8 @@ def main() -> int:
                           rows, names, by_pack, pps_pool)
     calvin = phase_calvin(cells, Engine, timed_run, fused, dev, pps_pool)
     occ, loop = phase_occ(cells, Engine, timed_run, fused, dev, pps_pool)
+    reb_maat, maat_body = phase_maat(cells, Engine, timed_run, fused, rebase,
+                                     dev, rows, names, by_pack, pps_pool)
 
     from deneva_tpu_torch.ops import device_loop
     gpu_line = phase_gpu()
@@ -1782,12 +2049,13 @@ def main() -> int:
     for name in GRAPH_CELLS:
         rec = phase_graph(cells, name, Engine, timed_run, fused, dev,
                           gpu_line)
+        # the set-condition kernel ran once per replayed pass (OCC, MAAT)
+        loop["replayed"] += rec["passes"]
         if name in occ:
             # the validation sort is a row of its own, like CALVIN's lock
-            # sort; the set-condition kernel ran once per replayed pass
+            # sort
             occ[name]["replayed"] = rec["replayed"].pop(occ[name]["pack"],
                                                         0)
-            loop["replayed"] += rec["passes"]
         # the packs only the graph path sorts (the full-width effect body):
         # held to the plain version and timed; their launches are the graph
         # path's wrapper count (warm-up and capture)
@@ -1841,6 +2109,7 @@ def main() -> int:
         "route": "cuda",
         "source": "deneva_tpu_torch/csrc/graph_while.cu",
         "replaces": "deneva_tpu/cc/occ.py:291",
+        "also_replaces": "deneva_tpu/cc/maat.py:546",
         "launches": loop["launches"],
         "replayed_launches": loop["replayed"],
         "max_abs_err": loop["err"], "ms": loop["ms"],
@@ -1849,11 +2118,17 @@ def main() -> int:
         "set_condition_ms": loop["set_condition_ms"],
         "occ_body_pass_ms": loop["body"]["graph_ms"],
         "occ_body_pass_device_ms": loop["body"]["device_ms"],
+        "maat_body_pass_ms": {k: v["graph_ms"]
+                              for k, v in maat_body.items()},
+        "maat_body_pass_device_ms": {k: v["device_ms"]
+                                     for k, v in maat_body.items()},
     })
     for rec, what, replaces in (
             (reb, "wts+rts", "deneva_tpu/cc/timestamp.py:119"),
             (reb_ring, "w_ring+r_ring, ring mode",
-             "deneva_tpu/cc/mvcc.py:96")):
+             "deneva_tpu/cc/mvcc.py:96"),
+            (reb_maat, "maat_lr+maat_lw, ring mode",
+             "deneva_tpu/cc/maat.py:168")):
         r0, r1 = rec["by_shift"][0], rec["by_shift"][2**30]
         kernels.append({
             "name": f"ts_rebase[{what} {rec['n']} cells, shift 0: a tick "

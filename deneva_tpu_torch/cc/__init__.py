@@ -1,8 +1,9 @@
 """CC-algorithm registry (the reference's CC_ALG compile switch).  The
-port carries NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN and OCC so far."""
+port carries NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN, OCC and MAAT."""
 
 from deneva_tpu_torch.cc.base import AccessDecision, CCPlugin
 from deneva_tpu_torch.cc.calvin import Calvin
+from deneva_tpu_torch.cc.maat import Maat
 from deneva_tpu_torch.cc.mvcc import Mvcc
 from deneva_tpu_torch.cc.no_wait import NoWait, WaitDie
 from deneva_tpu_torch.cc.occ import Occ
@@ -22,6 +23,7 @@ register(Timestamp())
 register(Mvcc())
 register(Calvin())
 register(Occ())
+register(Maat())
 
 
 def get(name: str) -> CCPlugin:

@@ -101,6 +101,9 @@ class CCPlugin:
     never_aborts: bool = False
     #: registered reasons this plugin's access decisions can carry
     access_abort_reasons: tuple[str, ...] = ()
+    #: the db field holding each slot's commit timestamp, which orders the
+    #: tick's commit effects (MaaT's find_bound lower); None: ``txn.ts``
+    commit_ts_field: str | None = None
 
     def init_db(self, cfg: Config, n_rows: int, B: int, R: int,
                 device="cpu") -> dict:

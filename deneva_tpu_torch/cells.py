@@ -49,6 +49,13 @@
   tables and a 67 MB ``occ_wcommit`` over the 16.74M catalog rows.
 - ``pps_occ``: the ``pps`` cell under OCC.  These three are Deneva's OCC
   column of the VLDB'17 grid at one node.
+- ``headline_maat``: the ``headline`` cell under MAAT; ``maat_lr`` and
+  ``maat_lw`` (16,777,216 int32 each, 128 MB) sit beside the 64 MB
+  ``data``.  ``maat_chain_window`` keeps the ``Config`` default of 8.
+- ``tpcc_maat``: the ``tpcc`` cell under MAAT, nothing cut: 134 MB of
+  ``maat_lr``/``maat_lw`` beside 241.8 MB of tables.
+- ``pps_maat``: the ``pps`` cell under MAAT.  These three are Deneva's
+  MAAT column of the VLDB'17 grid at one node.
 """
 
 from __future__ import annotations
@@ -84,6 +91,9 @@ CELLS["pps_calvin"] = dict(CELLS["pps"], cc_alg="CALVIN")
 CELLS["headline_occ"] = dict(CELLS["headline"], cc_alg="OCC")
 CELLS["tpcc_occ"] = dict(CELLS["tpcc"], cc_alg="OCC")
 CELLS["pps_occ"] = dict(CELLS["pps"], cc_alg="OCC")
+CELLS["headline_maat"] = dict(CELLS["headline"], cc_alg="MAAT")
+CELLS["tpcc_maat"] = dict(CELLS["tpcc"], cc_alg="MAAT")
+CELLS["pps_maat"] = dict(CELLS["pps"], cc_alg="MAAT")
 
 
 def config(name: str, **overrides) -> Config:

@@ -12,8 +12,8 @@ once.  One tick:
   5. sends aborted txns to exponential backoff (worker_thread.cpp:160-171).
 
 This is the port of ``deneva_tpu/engine/scheduler.py`` for one slice:
-YCSB, TPC-C or PPS under NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN or
-OCC, single shard, SERIALIZABLE, NORMAL mode, commit before access, with
+YCSB, TPC-C or PPS under NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN, OCC
+or MAAT, single shard, SERIALIZABLE, NORMAL mode, commit before access, with
 ``fused_arbitrate`` on or off and every other opt-in flag off.  ``check_slice`` refuses
 anything else; its single-shard rule also covers the JAX engine's ``part_cnt == 1``
 assertion for a workload with commit effects.  Every observatory hook of
@@ -26,13 +26,13 @@ the reference; the engine never reads a device value on the host.
 ``Engine.run`` launches every op of every tick from Python.  There, a
 YCSB tick syncs the device nowhere, TPC-C's and PPS's commit effects
 read one scalar per tick on the host (their compact/full choice), and
-OCC's validation fixed point reads its flag once per pass
-(``ops/device_loop.py``).  ``Engine.run_compiled`` runs the tick made
-with ``on_device``, which reads nothing on the host (the full-width
-effect body on every tick): on CUDA as a CUDA graph per flush phase,
-replayed with no host read, OCC's loop a WHILE node of the graph
-(``engine/graph.py``); on the CPU in a host loop, where OCC's loop still
-reads its flag.
+OCC's validation fixed point and MAAT's commit chain read their flag
+once per pass (``ops/device_loop.py``).  ``Engine.run_compiled`` runs the
+tick made with ``on_device``, which reads nothing on the host (the
+full-width effect body on every tick): on CUDA as a CUDA graph per flush
+phase, replayed with no host read, each loop a WHILE node of the graph
+(``engine/graph.py``); on the CPU in a host loop, where the loops still
+read their flag.
 """
 
 from __future__ import annotations
@@ -46,8 +46,8 @@ import torch
 from deneva_tpu_torch import cc as cc_registry
 from deneva_tpu_torch import workloads as wl_registry
 from deneva_tpu_torch.config import (
-    CALVIN, MODE_NORMAL, MVCC, NO_WAIT, OCC, PPS, SERIALIZABLE, TIMESTAMP,
-    TPCC, WAIT_DIE, YCSB, Config, optin_flags,
+    CALVIN, MAAT, MODE_NORMAL, MVCC, NO_WAIT, OCC, PPS, SERIALIZABLE,
+    TIMESTAMP, TPCC, WAIT_DIE, YCSB, Config, optin_flags,
 )
 from deneva_tpu_torch.device import resolve_device
 from deneva_tpu_torch.engine.state import (
@@ -106,7 +106,8 @@ LAT_SAMPLES = 1 << 14
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for a config outside the ported slice."""
     bad = []
-    if cfg.cc_alg not in (NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN, OCC):
+    if cfg.cc_alg not in (NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN, OCC,
+                          MAAT):
         bad.append(f"cc_alg={cfg.cc_alg}")
     if cfg.workload not in (YCSB, TPCC, PPS):
         bad.append(f"workload={cfg.workload}")
@@ -128,7 +129,7 @@ def check_slice(cfg: Config) -> None:
     if bad:
         raise NotImplementedError(
             "outside the ported slice (YCSB, TPC-C or PPS under NO_WAIT, "
-            "WAIT_DIE, TIMESTAMP, MVCC, CALVIN or OCC, single shard, "
+            "WAIT_DIE, TIMESTAMP, MVCC, CALVIN, OCC or MAAT, single shard, "
             "default flags): "
             + ", ".join(bad))
 
@@ -380,15 +381,19 @@ def make_tick(cfg: Config, plugin, pool_dev: dict, workload,
         tables = state.tables
         if workload.has_effects:
             # commit effects on the flattened (B*R,) entries, ordered
-            # within the tick by the commit timestamp (txn.ts under 2PL
-            # and T/O); keys are shard-local on the single shard.  The
+            # within the tick by the commit timestamp: the plugin's
+            # commit_ts_field (MaaT's find_bound lower, which ties across
+            # txns: the effect sorts are stable, so ties go by lane), else
+            # txn.ts; keys are shard-local on the single shard.  The
             # tables are updated in place.
+            cts = db[plugin.commit_ts_field] if plugin.commit_ts_field \
+                else txn.ts
             flds = workload.commit_fields(cfg, tables, txn, commit)
             nmask = commit[:, None] & (ridx < txn.n_req[:, None])
             tables = workload.apply_commit_entries(
                 cfg, tables, txn.keys.reshape(-1), 0,
                 {k: v.reshape(-1) for k, v in flds.items()},
-                txn.ts[:, None].expand(B, R).reshape(-1), nmask.reshape(-1),
+                cts[:, None].expand(B, R).reshape(-1), nmask.reshape(-1),
                 on_device=on_device)
 
         stats = bump(stats, "txn_cnt", commit.sum(dtype=I32), measuring)

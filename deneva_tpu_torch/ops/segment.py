@@ -163,14 +163,15 @@ def at_run_start(prefix_val: torch.Tensor, run_start: torch.Tensor,
                  rs_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Value of an exclusive prefix reduction at my (segment, owner)-run
     start: the reference's ``at_run_start(prefix_val, run_start, starts,
-    identity, op)``, the "skip my own entries" exclusion of the OCC
-    validator.  ``prefix_val`` does not decrease inside a segment and is
-    at least ``identity``, so the running max over the run starts at or
-    before me is the value at the last of them: one gather at
-    ``run_start_index`` (pass ``rs_idx`` when it is fixed across calls).
-    Only ``op="max"`` is ported; "min" comes with MAAT."""
-    if op != "max":
-        raise NotImplementedError(f"at_run_start op={op!r} is not ported")
+    identity, op)``, the "skip my own entries" exclusion of the OCC and
+    MAAT validators.  ``prefix_val`` is monotone inside a segment in the
+    direction of ``op`` ("max": non-decreasing and at least ``identity``;
+    "min": non-increasing and at most ``identity``), so the running max
+    (min) over the run starts at or before me is the value at the last of
+    them: one gather at ``run_start_index`` (pass ``rs_idx`` when it is
+    fixed across calls)."""
+    if op not in ("max", "min"):
+        raise ValueError(op)
     if rs_idx is None:
         rs_idx = run_start_index(run_start, sidx)
     got = prefix_val.index_select(0, torch.clamp(rs_idx, min=0).to(I64))
@@ -201,13 +202,17 @@ def _int_bounds(dtype):
 
 
 def _seg_incl(vals: torch.Tensor, starts: torch.Tensor, sid: torch.Tensor,
-              op: str):
-    """Inclusive per-segment scan on sorted segments."""
+              op: str, sidx: Optional[torch.Tensor] = None):
+    """Inclusive per-segment scan on sorted segments.  "add" reads the sum
+    before each segment start at the start index ``sidx`` (computed from
+    ``starts`` by a cummax when not given)."""
     if op == "add":
         # int64 sums less the sum before my segment start, wrapped back to
         # int32 like the reference's int32 adds
+        if sidx is None:
+            sidx = start_index(starts)
         cs = torch.cumsum(vals.to(I64), 0)
-        first = (cs - vals)[start_index(starts).to(I64)]
+        first = (cs - vals).index_select(0, sidx.to(I64))
         return (cs - first).to(I32)
     word = vals.to(I64) + 2**31                     # order-preserving, >= 0
     if op == "min":
@@ -230,9 +235,25 @@ def _seg_scan(vals: torch.Tensor, starts: torch.Tensor, op: str, identity):
     return torch.where(same_seg, prev, identity)
 
 
-def seg_reduce(vals: torch.Tensor, starts: torch.Tensor, op: str):
+def seg_end_index(starts: torch.Tensor, sidx: torch.Tensor) -> torch.Tensor:
+    """For each position, the index where its segment ends, with no
+    cummax: each segment's last lane writes its index at the segment's
+    start index ``sidx`` (distinct slots; the other lanes write to
+    distinct scratch slots past them), and every lane reads its start's
+    slot."""
+    n = starts.shape[0]
+    lane = _iota(starts)
+    slots = torch.empty(2 * n, dtype=I32, device=starts.device)
+    slots.index_copy_(0, torch.where(_seg_ends(starts), sidx, n + lane)
+                      .to(I64), lane)
+    return slots.index_select(0, sidx.to(I64))
+
+
+def seg_reduce(vals: torch.Tensor, starts: torch.Tensor, op: str,
+               sidx: Optional[torch.Tensor] = None):
     """Whole-segment reduction broadcast back to every member;
-    op in {"min", "max", "sum"}."""
+    op in {"min", "max", "sum"}.  Given the start index ``sidx``, "sum" is
+    the inclusive sum read at each segment's end, with no cummax."""
     lo, hi = _int_bounds(vals.dtype)
     if op == "min":
         pre = _seg_scan(vals, starts, "min", hi)
@@ -243,6 +264,9 @@ def seg_reduce(vals: torch.Tensor, starts: torch.Tensor, op: str):
         suf = seg_suffix_max(vals, starts, lo)
         return torch.maximum(torch.maximum(pre, vals), suf)
     if op == "sum":
+        if sidx is not None:
+            incl = _seg_incl(vals, starts, None, "add", sidx)
+            return incl.index_select(0, seg_end_index(starts, sidx).to(I64))
         pre = _seg_scan(vals, starts, "add", 0)
         suf = _seg_suffix_scan(vals, starts, "add", 0)
         return pre + vals + suf

@@ -421,6 +421,60 @@ def test_occ_engine_cuda_matches_cpu(dev, workload):
         assert torch.equal(getattr(sg.txn, f).cpu(), getattr(sc.txn, f)), f
 
 
+@pytest.mark.parametrize("workload", sorted(WAIT_DIE_CFGS))
+def test_maat_engine_cuda_matches_cpu(dev, workload):
+    # MAAT: its chain sort (6 columns by 3 keys) and squeeze sort (4 by 3)
+    # on the kernel, once each per tick; the commit chain on the host, one
+    # flag read per pass; the pass counts and every MAAT array agree
+    from deneva_tpu_torch.cc import maat
+    cfg = Config(cc_alg="MAAT", fused_arbitrate=True,
+                 **WAIT_DIE_CFGS[workload])
+    gpu = Engine(cfg, device=dev)
+    cpu = Engine(cfg, pool=gpu.pool, device="cpu")
+    fused.reset_launches()
+    device_loop.reset_passes()
+    sg = gpu.run(60)
+    sc = cpu.run(60)
+    s = gpu.summary(sg)
+    assert s == cpu.summary(sc)
+    assert s["txn_cnt"] > 0 and s["vabort_cnt"] == s["maat_range_abort_cnt"]
+    n = cfg.batch_size * gpu.pool.max_req
+    assert fused.LAUNCHES_BY_PACK[(6, 3, n, 0)] == 60
+    assert fused.LAUNCHES_BY_PACK[(4, 3, n, 0)] == 60
+    assert int(device_loop.passes(maat.LOOP_SITE, dev)) \
+        == int(device_loop.passes(maat.LOOP_SITE, "cpu")) > 60
+    assert torch.equal(sg.data.cpu(), sc.data)
+    for k in sc.tables:
+        assert torch.equal(sg.tables[k].cpu(), sc.tables[k]), k
+    for k in sc.db:
+        assert torch.equal(sg.db[k].cpu(), sc.db[k]), k
+    for f in sc.txn._fields:
+        assert torch.equal(getattr(sg.txn, f).cpu(), getattr(sc.txn, f)), f
+
+
+@pytest.mark.parametrize("n", [81_920, 172_032, 270_336])
+def test_maat_packs_match_plain_in_one_launch(dev, n):
+    # the chain sort (key, finishing first, ts, is_write, access tick,
+    # txn) and the squeeze sort (key, access tick, ts, lane), 3 keys each,
+    # at each cell's B*R: half the lanes dead (INT32_MAX), ts per txn of
+    # 10 lanes, hot rows
+    rng = np.random.default_rng(n)
+    live = rng.random(n) < 0.5
+    key = np.where(live, rng.integers(0, 4096, n), 2**31 - 1)
+    tx = np.arange(n) // 10
+    ts = rng.permutation(n // 10 + 1)[tx] + 1
+    atick = rng.integers(0, 40, n // 10 + 1)[tx] + np.arange(n) % 10
+    nf = np.where(live, (rng.random(n // 10 + 1) < 0.7)[tx], 1)
+    iw = rng.random(n) < 0.5
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    chain = [as_t(key), as_t(nf), as_t(ts), torch.from_numpy(iw).to(dev),
+             as_t(atick), as_t(tx)]
+    squeeze = [as_t(key), as_t(atick), as_t(ts), as_t(np.arange(n))]
+    _check(chain, 3)
+    _check(squeeze, 3)
+    _assert_one_device_launch(lambda: fused.fused_sort_scan(squeeze, 3))
+
+
 @pytest.mark.parametrize("n", [81_920, 172_032, 270_336])
 def test_mvcc_version_insert_pack_matches_plain_in_one_launch(dev, n):
     # (key, BIG_TS - ts, ts, committed write) by 2 keys at each cell's
@@ -480,7 +534,7 @@ def _assert_same_run(eng, a, b):
 
 
 @pytest.mark.parametrize("cc", ["NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC",
-                                "CALVIN", "OCC"])
+                                "CALVIN", "OCC", "MAAT"])
 @pytest.mark.parametrize("workload", sorted(GRAPH_CFGS))
 def test_graph_replay_matches_eager(dev, workload, cc):
     # 40 ticks: eager, then replayed from the initial state in two calls
@@ -498,8 +552,9 @@ def test_graph_replay_matches_eager(dev, workload, cc):
     assert eng.summary(sg)["txn_cnt"] > 0
     assert {k: c1[k] - c0[k] for k in c0} == {k: c2[k] - c1[k] for k in c0}
     # launches counted at capture only: the warm-up's 3 ticks and the 3
-    # phase graphs, not the 40 replays; MVCC adds its version insert, and
-    # OCC sorts once to validate in place of the lock sort and unpermute
+    # phase graphs, not the 40 replays; MVCC adds its version insert, OCC
+    # sorts once to validate in place of the lock sort and unpermute, and
+    # MAAT twice (its chain and squeeze sorts)
     per_tick = sum(eng.graphs.launches[0].values())
     assert per_tick == {"ycsb": 2, "tpcc": 7, "pps": 3}[workload] \
         + (cc == "MVCC") - (cc == "OCC")
@@ -513,31 +568,95 @@ def test_graph_replay_matches_eager(dev, workload, cc):
     assert st.host_tick == 46
 
 
-def _passes_per_tick(eng, state, n_ticks, compiled):
-    """Advance n_ticks one at a time; the OCC fixed point's passes in
-    each, read from its device counter (a host read between ticks)."""
+def _passes_per_tick(eng, state, n_ticks, compiled, site="occ"):
+    """Advance n_ticks one at a time; the passes of the device loop at
+    `site` (OCC's fixed point, MAAT's chain) in each, read from its
+    device counter (a host read between ticks)."""
     out = []
     for _ in range(n_ticks):
         device_loop.reset_passes()
         state = eng.advance(1, state, compiled=compiled)
-        out.append(int(device_loop.passes("occ", eng.device)))
+        out.append(int(device_loop.passes(site, eng.device)))
     return state, out
+
+
+def _replay_runs_the_eager_passes(dev, workload, cc):
+    """The WHILE node runs each replayed tick's loop to its end (OCC's
+    fixed point; MAAT's chain, 66 passes at most): as many passes as the
+    eager tick's host loop, tick by tick."""
+    cfg = Config(cc_alg=cc, fused_arbitrate=True, **GRAPH_CFGS[workload])
+    site = cc.lower()
+    eng = Engine(cfg, device=dev)
+    se, eager = _passes_per_tick(eng, eng.init_state(), 30, False, site)
+    eng._flush_body(se)
+    state = eng.advance(0, eng.init_state(), compiled=True)
+    assert device_loop.LAUNCHES > 0
+    sg, graph = _passes_per_tick(eng, state, 30, True, site)
+    eng._flush_body(sg)
+    _assert_same_run(eng, se, sg)
+    assert eager == graph and max(eager) > 1, (eager, graph)
 
 
 @pytest.mark.parametrize("workload", sorted(GRAPH_CFGS))
 def test_occ_graph_replay_runs_the_eager_passes(dev, workload):
-    # the WHILE node runs each replayed tick's fixed point to convergence:
-    # as many passes as the eager tick's host loop, tick by tick
-    cfg = Config(cc_alg="OCC", fused_arbitrate=True, **GRAPH_CFGS[workload])
-    eng = Engine(cfg, device=dev)
-    se, eager = _passes_per_tick(eng, eng.init_state(), 30, False)
-    eng._flush_body(se)
-    state = eng.advance(0, eng.init_state(), compiled=True)
-    assert device_loop.LAUNCHES > 0
-    sg, graph = _passes_per_tick(eng, state, 30, True)
-    eng._flush_body(sg)
-    _assert_same_run(eng, se, sg)
-    assert eager == graph and max(eager) > 1, (eager, graph)
+    _replay_runs_the_eager_passes(dev, workload, "OCC")
+
+
+@pytest.mark.parametrize("workload", sorted(GRAPH_CFGS))
+def test_maat_graph_replay_runs_the_eager_passes(dev, workload):
+    _replay_runs_the_eager_passes(dev, workload, "MAAT")
+
+
+@pytest.mark.parametrize("n", [40, 80])
+def test_maat_deep_chain_replays_every_pass(dev, n):
+    # MAAT's forced chain: n txns finishing in one tick, each reading the
+    # row the one before writes; 40 passes and 20 commits, or at 80 txns
+    # the bound, 66 passes and 47 commits, in a replay as eagerly and on
+    # the CPU
+    from deneva_tpu_torch.cc.maat import chain_pool
+    kw, pool = chain_pool(n)
+    cfg = Config(fused_arbitrate=True, **kw)
+    runs = {}
+    for name, device, compiled in (("cpu", "cpu", False),
+                                   ("eager", dev, False),
+                                   ("graph", dev, True)):
+        eng = Engine(cfg, pool=pool, device=device)
+        state = eng.init_state()
+        if compiled:
+            state = eng.advance(0, state, compiled=True)
+        state, per_tick = _passes_per_tick(eng, state, 3, compiled, "maat")
+        eng._flush_body(state)
+        runs[name] = (per_tick, eng.summary(state))
+    for name, (per_tick, s) in runs.items():
+        assert per_tick == [1, 1, min(n, 66)], (name, per_tick)
+        assert s["txn_cnt"] == {40: 20, 80: 47}[n], name
+        assert s == runs["cpu"][1], name
+
+
+def test_maat_flag_stops_a_never_settling_step_in_the_while_node(dev):
+    # a step that always changes something, under MAAT's chain flag: one
+    # captured WHILE node stops it after exactly 66 passes, as the host
+    # loop does; with no row of two validators, after 1
+    from deneva_tpu_torch.cc import maat
+    passes = torch.zeros((), dtype=torch.int32, device=dev)
+    needed = torch.ones((), dtype=torch.bool, device=dev)
+    changed = torch.ones((), dtype=torch.bool, device=dev)
+
+    def step():
+        passes.add_(1)
+        return maat.flag(needed, passes, changed)
+
+    device_loop.run_while(step, "test_maat", dev)   # the host loop
+    assert int(passes) == maat.MAX_PASSES
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        device_loop.run_while(step, "test_maat", dev)
+    for need, want in ((True, maat.MAX_PASSES), (False, 1)):
+        needed.fill_(need)
+        passes.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(passes) == want
 
 
 def test_occ_deep_chain_replays_every_pass(dev):

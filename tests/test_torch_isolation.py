@@ -35,6 +35,7 @@ MODULES = (
     "deneva_tpu_torch.cc.compact", "deneva_tpu_torch.cc.twopl",
     "deneva_tpu_torch.cc.no_wait", "deneva_tpu_torch.cc.timestamp",
     "deneva_tpu_torch.cc.calvin", "deneva_tpu_torch.cc.occ",
+    "deneva_tpu_torch.cc.maat",
     "deneva_tpu_torch.profile_tick",
     "chip_smoke",
 )
@@ -105,7 +106,11 @@ OUTSIDE = {
                          abort_attribution=True),
     # nor is the sharded OCC (its per-owner group_and verdicts)
     "occ_multi_partition": dict(cc_alg="OCC", part_cnt=2),
-    "maat": dict(cc_alg="MAAT"),
+    # MAAT's depgraph plane is not ported
+    "maat_depgraph": dict(cc_alg="MAAT", depgraph=True,
+                          abort_attribution=True),
+    # nor is the sharded MAAT (its per-owner TimeTables and forward pushes)
+    "maat_multi_partition": dict(cc_alg="MAAT", part_cnt=2),
     # TPC-C and PPS are ported on one shard only
     "pps": dict(workload="PPS", part_cnt=2),
     "tpcc": dict(workload="TPCC", part_cnt=2),

@@ -97,9 +97,31 @@ def test_at_run_start_matches_reference(n, all_starts):
                           rs_idx=rs_idx), want)
     if all_starts:
         assert (rs_idx >= 0).all()
-    with pytest.raises(NotImplementedError, match="min"):
+    with pytest.raises(ValueError, match="sum"):
         tseg.at_run_start(T(np.asarray(prefix)), T(run_start), sidx, -1,
-                          "min")
+                          "sum")
+
+
+@pytest.mark.parametrize("all_starts", [True, False],
+                         ids=["maat_runs", "any_runs"])
+@pytest.mark.parametrize("n", SIZES)
+def test_at_run_start_min_matches_reference(n, all_starts):
+    # MAAT's reader cap: a non-increasing exclusive prefix min of masked
+    # values over the whole int32 range, read at the last run start at or
+    # before each lane (identity BIG before a segment's first run start)
+    ids, vals, _, mask = _segments(n, 80 + n)
+    ts, js = tseg.segment_starts(T(ids)), jseg.segment_starts(J(ids))
+    prefix = jseg.seg_prefix_min(jnp.where(J(mask), J(vals), BIG), js, BIG)
+    runs = np.random.default_rng(n + 1).random(n) < 0.3
+    run_start = runs | np.asarray(js) if all_starts else runs
+    sidx = tseg.start_index(ts)
+    want = jseg.at_run_start(prefix, J(run_start), js, BIG, "min")
+    got = tseg.at_run_start(T(np.asarray(prefix)), T(run_start), sidx, BIG,
+                            "min")
+    _eq(got, want)
+    rs_idx = tseg.run_start_index(T(run_start), sidx)
+    _eq(tseg.at_run_start(T(np.asarray(prefix)), None, None, BIG, "min",
+                          rs_idx=rs_idx), want)
 
 
 @pytest.mark.parametrize("depth", [1, 2, 9, 40])
@@ -126,6 +148,23 @@ def test_seg_reduce(op, n):
     ids, vals, *_ = _segments(n, 20 + n)
     ts, js = tseg.segment_starts(T(ids)), jseg.segment_starts(J(ids))
     _eq(tseg.seg_reduce(T(vals), ts, op), jseg.seg_reduce(J(vals), js, op))
+
+
+@pytest.mark.parametrize("n", SIZES + (4096,))
+def test_seg_reduce_sum_at_start_index(n):
+    # given the kernel's start index, the segment sum is read at each
+    # segment's end (no cummax), int32 wrap-around included: MAAT's count
+    # of distinct validators per row (nfin_seg)
+    for seed, n_ids in ((40 + n, None), (50 + n, 1), (60 + n, n)):
+        ids, vals, cnt, _ = _segments(n, seed, n_ids)
+        ts, js = tseg.segment_starts(T(ids)), jseg.segment_starts(J(ids))
+        sidx = tseg.start_index(ts)
+        for v in (vals, cnt):
+            _eq(tseg.seg_reduce(T(v), ts, "sum", sidx),
+                jseg.seg_reduce(J(v), js, "sum"))
+        # each lane's segment ends at the last lane of its id
+        want_end = np.searchsorted(ids, ids, side="right") - 1
+        _eq(tseg.seg_end_index(ts, sidx), want_end.astype(np.int32))
 
 
 @pytest.mark.parametrize("n", SIZES)
