@@ -468,8 +468,7 @@ def library_call(cols, nk):
     """One torch.sort that orders the pack as the kernel does: by the key
     itself, or by two int32 keys packed into one int64, or by three keys
     packed into one int64 with each key less its minimum in as many bits
-    as its range takes (all stable); None for three keys whose ranges
-    take more than 63 bits."""
+    as its range takes (all stable; MAAT's packs take at most 63)."""
     if nk == 1:
         return lambda: torch.sort(cols[0], stable=True)
     if nk == 2:
@@ -480,8 +479,7 @@ def library_call(cols, nk):
     lows = [int(c.min().item()) for c in cols[:3]]
     bits = [max(1, (int(c.max().item()) - lo).bit_length())
             for c, lo in zip(cols[:3], lows)]
-    if sum(bits) > 63:
-        return None
+    assert sum(bits) <= 63, bits
     return lambda: torch.sort(
         ((cols[0].to(torch.int64) - lows[0]) << (bits[1] + bits[2]))
         | ((cols[1].to(torch.int64) - lows[1]) << bits[2])
@@ -515,20 +513,19 @@ def measure_pack(fused, name, cols, nk, shift):
                              f"{sort_launches} of them the fused kernel, "
                              "per call; expected 1 and 1")
     plain_ms = cuda_ms(lambda: fused.fused_sort_scan_plain(cols, nk, shift))
-    lib_fn = library_call(cols, nk)
-    library_ms = cuda_ms(lib_fn) if lib_fn else None
-    library_dev_ms = device_ms(lib_fn)[0] if lib_fn else None
+    library = library_call(cols, nk)
+    library_ms = cuda_ms(library)
+    library_dev_ms = device_ms(library)[0]
     say("kernel", f"{name} n={n} shift={shift}: launch plan "
         f"grid={plan['grid']} blocks x {plan['threads']} threads, tile="
         f"{plan['tile']} records ({plan['tiles']} tiles), merge "
         f"levels={plan['levels']}, chunk={plan['chunk']}")
-    lib = (f"torch.sort {library_ms:.4f} ms ({library_dev_ms:.4f} ms on "
-           "the device)" if lib_fn else "no one torch.sort (keys wider "
-           "than 63 bits)")
     say("kernel", f"{name}: bit-equal, kernel {ms:.4f} ms per call "
         f"({dev_ms:.4f} ms of it on the device in {dev_launches:g} "
         f"device kernel per call, torch.profiler), plain "
-        f"{plain_ms:.4f} ms, {lib}, bound {bms:.5f} ms ({by})")
+        f"{plain_ms:.4f} ms, torch.sort {library_ms:.4f} ms "
+        f"({library_dev_ms:.4f} ms on the device), bound {bms:.5f} ms "
+        f"({by})")
     return dict(err=err, ms=ms, device_ms=dev_ms,
                 device_launches=dev_launches, plain_ms=plain_ms,
                 library_ms=library_ms, library_device_ms=library_dev_ms,
@@ -563,33 +560,38 @@ def loop_passes(eng) -> int:
 def trace_ticks(name, eng, tick, expect_sort):
     """A torch.profiler trace of TRACE_TICKS calls of `tick`
     (``profile_tick.trace_kernels``, `expect_sort` passed on), the device
-    loop's passes of each traced tick read after it.  The torch.cummax
-    launches per tick must be MAAT's counted scan sites (MAAT_CUMMAX, with
-    the traced passes) on a MAAT cell and 0 on every other; a trace that
-    shows another count is taken again, up to 5 traces in all (a trace
-    can gain kernels of its warm-up step, as ``trace_kernels`` says), and
-    the last one must match.  Returns the per-tick breakdown, the passes
-    per tick and the traces taken."""
+    loop's passes of each traced tick read after it.  The tick's
+    torch.cummax calls (the trace's host ``aten::_cummax_helper`` ops of
+    the recorded step, one per call and per device launch) must be MAAT's counted scan
+    sites (MAAT_CUMMAX, with the traced passes) on a MAAT cell and 0 on
+    every other, in this one trace.  On a cell with none, the trace's
+    cummax device kernels must be 0 too; on a MAAT cell their count is
+    reported beside the host calls (a trace can gain or lose device
+    kernels at its step's edge, as ``trace_kernels`` says).  Returns the
+    per-tick breakdown, with the host calls as ``cummax_calls``, and the
+    passes per tick."""
     from deneva_tpu_torch.profile_tick import breakdown, trace_kernels
-    per_pass = []
+    per_pass, host = [], {}
 
     def traced():
         p0 = loop_passes(eng)
         tick()
         per_pass.append(loop_passes(eng) - p0)
 
-    for traces in range(1, 6):
-        per = breakdown(trace_kernels(traced, TRACE_TICKS, expect_sort),
-                        TRACE_TICKS)
-        passes = sum(per_pass[-TRACE_TICKS:]) / TRACE_TICKS
-        want = 0
-        if eng.plugin.name == "MAAT":
-            want = MAAT_CUMMAX[0] + MAAT_CUMMAX[1] * passes
-        if round(per["cummax_launches"], 6) == round(want, 6):
-            return per, passes, traces
-    raise AssertionError(f"the {name} tick runs {per['cummax_launches']} "
-                         f"torch.cummax per tick, expected {want} ({traces} "
-                         "traces)")
+    per = breakdown(trace_kernels(traced, TRACE_TICKS, expect_sort, host),
+                    TRACE_TICKS)
+    per["cummax_calls"] = host.get("aten::_cummax_helper", 0) / TRACE_TICKS
+    passes = sum(per_pass[-TRACE_TICKS:]) / TRACE_TICKS
+    want = 0
+    if eng.plugin.name == "MAAT":
+        want = MAAT_CUMMAX[0] + MAAT_CUMMAX[1] * passes
+    if round(per["cummax_calls"], 6) != round(want, 6) or (
+            want == 0 and per["cummax_launches"] != 0):
+        raise AssertionError(
+            f"the {name} tick calls torch.cummax {per['cummax_calls']} "
+            f"times per tick ({per['cummax_launches']} device kernels), "
+            f"expected {want}")
+    return per, passes
 
 
 def loop_syncs(eng, tick, n_ticks, want_other, other_files):
@@ -613,8 +615,8 @@ def loop_syncs(eng, tick, n_ticks, want_other, other_files):
 
 def phase_trace(eng, state, name="headline", per_tick=2):
     """A torch.profiler trace of TRACE_TICKS ticks of a YCSB cell: the
-    kernel's device launches per tick (`per_tick`) and the cummax kernels
-    (``trace_ticks``); then the same ticks under the CUDA sync debug mode:
+    kernel's device launches per tick (`per_tick`) and the torch.cummax
+    calls (``trace_ticks``); then the same ticks under the CUDA sync debug mode:
     no host sync, but for one flag read per pass of the device loop.
     Returns the state after them."""
     box = [state]
@@ -622,14 +624,14 @@ def phase_trace(eng, state, name="headline", per_tick=2):
     def tick():
         box[0] = eng.tick(box[0])
 
-    per, passes, traces = trace_ticks(name, eng, tick,
-                                      per_tick * TRACE_TICKS)
+    per, passes = trace_ticks(name, eng, tick, per_tick * TRACE_TICKS)
     say("trace", f"{TRACE_TICKS} {name} ticks (torch.profiler): "
         f"{per['kernel_launches']:.1f} device launches per tick, device "
         f"busy {per['device_busy_us']:.1f} us per tick, fused kernel "
-        f"{per['fused_sort_scan_launches']:g} launches per tick, cummax "
-        f"kernels {per['cummax_launches']:g} per tick ({passes:g} loop "
-        f"passes per tick; {traces} traces)")
+        f"{per['fused_sort_scan_launches']:g} launches per tick, "
+        f"torch.cummax {per['cummax_calls']:g} calls and "
+        f"{per['cummax_launches']:g} device kernels per tick ({passes:g} "
+        "loop passes per tick)")
     if per["fused_sort_scan_launches"] != per_tick:
         raise AssertionError(f"{per['fused_sort_scan_launches']} fused "
                              "kernel launches per traced tick, expected "
@@ -846,7 +848,7 @@ def trace_cell(name, eng, state, fused, want_syncs, sync_files):
     per tick equal the wrapper's count over the same ticks; then the host
     syncs of a tick (CUDA sync debug mode) must be `want_syncs`, all at
     lines of the files `sync_files`, plus one flag read per pass of the
-    device loop (OCC, MAAT), and its cummax launches those of
+    device loop (OCC, MAAT), and its torch.cummax calls those of
     ``trace_ticks``.  Returns the packs of one more tick, captured, and the
     trace's per-tick numbers; flushes the state."""
     box, per_call = [state], []
@@ -856,16 +858,17 @@ def trace_cell(name, eng, state, fused, want_syncs, sync_files):
         box[0] = eng.tick(box[0])
         per_call.append(fused.LAUNCHES - n0)
 
-    per, passes, traces = trace_ticks(
-        name, eng, tick, lambda: sum(per_call[-TRACE_TICKS:]))
+    per, passes = trace_ticks(name, eng, tick,
+                              lambda: sum(per_call[-TRACE_TICKS:]))
     counted = sum(per_call[-TRACE_TICKS:]) / TRACE_TICKS
     say("trace", f"{TRACE_TICKS} {name} ticks (torch.profiler): "
         f"{per['kernel_launches']:.1f} device launches per tick, device "
         f"busy {per['device_busy_us']:.1f} us per tick, fused kernel "
         f"{per['fused_sort_scan_launches']:g} launches and "
         f"{per['fused_sort_scan_us']:.1f} us per tick (wrapper count "
-        f"{counted:g}), cummax kernels {per['cummax_launches']:g} per tick "
-        f"({passes:g} loop passes per tick; {traces} traces)")
+        f"{counted:g}), torch.cummax {per['cummax_calls']:g} calls and "
+        f"{per['cummax_launches']:g} device kernels per tick ({passes:g} "
+        "loop passes per tick)")
     if per["fused_sort_scan_launches"] != counted:
         raise AssertionError("traced kernel launches per tick != the "
                              "wrapper's count")
@@ -1665,7 +1668,7 @@ def phase_maat(cells, Engine, timed_run, fused, rebase, dev, rows, names,
         by_pack.update({p: counted.get(p, 0) for p in new})
 
     body = {}
-    # phase_trace checks 2 launches per tick, the cummax launches and one
+    # phase_trace checks 2 launches per tick, the cummax calls and one
     # host sync per pass of the chain
     eng, state, hb, rebase_launches = phase_headline(
         cells, Engine, timed_run, fused, dev, "headline_maat")

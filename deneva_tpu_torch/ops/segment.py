@@ -202,17 +202,13 @@ def _int_bounds(dtype):
 
 
 def _seg_incl(vals: torch.Tensor, starts: torch.Tensor, sid: torch.Tensor,
-              op: str, sidx: Optional[torch.Tensor] = None):
-    """Inclusive per-segment scan on sorted segments.  "add" reads the sum
-    before each segment start at the start index ``sidx`` (computed from
-    ``starts`` by a cummax when not given)."""
+              op: str):
+    """Inclusive per-segment scan on sorted segments."""
     if op == "add":
         # int64 sums less the sum before my segment start, wrapped back to
         # int32 like the reference's int32 adds
-        if sidx is None:
-            sidx = start_index(starts)
         cs = torch.cumsum(vals.to(I64), 0)
-        first = (cs - vals).index_select(0, sidx.to(I64))
+        first = (cs - vals)[start_index(starts).to(I64)]
         return (cs - first).to(I32)
     word = vals.to(I64) + 2**31                     # order-preserving, >= 0
     if op == "min":
@@ -235,25 +231,13 @@ def _seg_scan(vals: torch.Tensor, starts: torch.Tensor, op: str, identity):
     return torch.where(same_seg, prev, identity)
 
 
-def seg_end_index(starts: torch.Tensor, sidx: torch.Tensor) -> torch.Tensor:
-    """For each position, the index where its segment ends, with no
-    cummax: each segment's last lane writes its index at the segment's
-    start index ``sidx`` (distinct slots; the other lanes write to
-    distinct scratch slots past them), and every lane reads its start's
-    slot."""
-    n = starts.shape[0]
-    lane = _iota(starts)
-    slots = torch.empty(2 * n, dtype=I32, device=starts.device)
-    slots.index_copy_(0, torch.where(_seg_ends(starts), sidx, n + lane)
-                      .to(I64), lane)
-    return slots.index_select(0, sidx.to(I64))
-
-
 def seg_reduce(vals: torch.Tensor, starts: torch.Tensor, op: str,
                sidx: Optional[torch.Tensor] = None):
     """Whole-segment reduction broadcast back to every member;
-    op in {"min", "max", "sum"}.  Given the start index ``sidx``, "sum" is
-    the inclusive sum read at each segment's end, with no cummax."""
+    op in {"min", "max", "sum"}.  "sum" adds each member into the slot at
+    its segment's start index ``sidx`` (an order-free int32 ``index_add_``
+    that wraps like the reference's int32 adds) and reads that slot back;
+    pass ``sidx`` to run no cummax."""
     lo, hi = _int_bounds(vals.dtype)
     if op == "min":
         pre = _seg_scan(vals, starts, "min", hi)
@@ -264,12 +248,9 @@ def seg_reduce(vals: torch.Tensor, starts: torch.Tensor, op: str,
         suf = seg_suffix_max(vals, starts, lo)
         return torch.maximum(torch.maximum(pre, vals), suf)
     if op == "sum":
-        if sidx is not None:
-            incl = _seg_incl(vals, starts, None, "add", sidx)
-            return incl.index_select(0, seg_end_index(starts, sidx).to(I64))
-        pre = _seg_scan(vals, starts, "add", 0)
-        suf = _seg_suffix_scan(vals, starts, "add", 0)
-        return pre + vals + suf
+        at = (start_index(starts) if sidx is None else sidx).to(I64)
+        return torch.zeros_like(vals).index_add_(0, at, vals) \
+            .index_select(0, at)
     raise ValueError(op)
 
 

@@ -71,7 +71,8 @@ def launches_of(kernels, names) -> int:
     return sum(e.count for e in kernels if any(k in e.key for k in names))
 
 
-def trace_kernels(fn, reps: int, expect_sort=None) -> list:
+def trace_kernels(fn, reps: int, expect_sort=None,
+                  host_calls: dict | None = None) -> list:
     """The device kernels of `reps` calls of `fn` in one torch.profiler
     trace.  On an H100 host the profiler misses the first kernel launched
     in most traces, however long after the trace's start, so the trace
@@ -82,7 +83,11 @@ def trace_kernels(fn, reps: int, expect_sort=None) -> list:
     kernel's launches the recorded calls make, or a function that returns
     them after the calls), a trace that holds another count of the
     kernel's launches is taken again, up to ten times in all; the last
-    trace is returned, and the caller checks its counts."""
+    trace is returned, and the caller checks its counts.  A `host_calls`
+    dict is filled with the calls of each host op in that trace's
+    recorded step (``aten::_cummax_helper``: one per torch.cummax); the
+    profiler records host ops only in the step that calls them, so these
+    counts are exact."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
@@ -97,6 +102,11 @@ def trace_kernels(fn, reps: int, expect_sort=None) -> list:
         want = expect_sort() if callable(expect_sort) else expect_sort
         if want is None or launches_of(kernels, SORT_KERNELS) == want:
             break
+    if host_calls is not None:
+        host_calls.clear()
+        host_calls.update(
+            (e.key, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU)
     return kernels
 
 
