@@ -9,7 +9,9 @@ Phases, each printing one line:
   3. the kernel against its plain PyTorch version on the card, bit-equal,
      on the unit shape set and on both main-path packs, with the key shift
      of 0 and of 1, with times, its launch plan (blocks, tile, merge
-     levels) and exactly 1 device kernel per call (torch.profiler);
+     levels) and exactly 1 device kernel per call (the nodes of a CUDA
+     graph captured from one call), its device time per launch traced by
+     torch.profiler;
   4. the headline cell (16M rows, B=8192, R=10, zipf 0.6, NO_WAIT,
      fused_arbitrate) on CUDA: the [summary] line, commits per tick, tick
      time from CUDA events, peak memory, and 2 kernel launches per tick
@@ -112,10 +114,32 @@ Phases, each printing one line:
      passes and 20 commits, and at 80 txns the bound, 66 passes) on the
      CPU, eager on CUDA and replayed; a step whose flag never clears
      stopped at exactly 66 passes by the host loop and the WHILE node;
- 18. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
+ 18. the lock family's arbitration opt-ins: on each of headline_subticks
+     (sub_ticks=8), headline_timestamp_subticks (TIMESTAMP, sub_ticks=8),
+     pps_wait_die_dense (the dense-row window) and headline_read_committed,
+     50 eager ticks timed after the warm-up with the sort kernel's
+     launches by pack (2K + 1 = 17 per tick on the sub-tick cells: K lock
+     or decision sorts, K unpermutes and the ts_groups rank), 0
+     fallbacks and the increment oracle; one torch.profiler trace, taken
+     once, whose host records show exactly the tick's sort calls and 0
+     torch.cummax calls (and 0 cummax device kernels), with the eager idle
+     share; the host syncs of a tick (0 on YCSB, the effect choice on
+     pps); each pack the access phase sorts, taken from a live tick, held
+     bit-equal to the plain version and timed as a row of its own (1
+     device kernel per call); 12 ticks eager == replayed tick by tick
+     (every tensor of the state); CPU == CUDA after 20 ticks (summary,
+     [summary] line, data, tables, CC arrays and txn slots); then
+     dense_lock_state == the sorted join on one pool for 20 + 300 ticks on
+     the headline and on pps_wait_die; pipeline_exchange == the in-order
+     rounds on headline_subticks over 50 ticks; the headline at
+     READ_UNCOMMITTED and at NOLOCK over 50 ticks, CPU == CUDA and eager
+     == replayed;
+ 19. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
      pps, pps_wait_die, headline_timestamp, tpcc_timestamp, headline_mvcc,
      tpcc_mvcc, headline_calvin, tpcc_calvin, pps_calvin, headline_occ,
-     tpcc_occ, pps_occ, headline_maat, tpcc_maat and pps_maat cells: 300
+     tpcc_occ, pps_occ, headline_maat, tpcc_maat, pps_maat,
+     headline_subticks, headline_timestamp_subticks, pps_wait_die_dense
+     and headline_read_committed cells: 300
      ticks eager and 300 replayed from the same initial state give equal
      summaries, data, tables, CC state (wts, rts) and effect bodies; a
      replayed tick makes 0 host syncs (sync debug mode "error");
@@ -133,7 +157,8 @@ Phases, each printing one line:
      printed).
 Then one JSON line of per-kernel numbers (one entry per pack of the sort
 kernel, MAAT's six among them, one for CALVIN's lock sort on tpcc_calvin,
-one for each OCC cell's validation sort, one per use of the rebase kernel
+one for each OCC cell's validation sort, one for each pack of the lock
+opt-in cells' access phase, one per use of the rebase kernel
 (T/O's plain rule, MVCC's and MAAT's ring rule) at the main path's shift
 of 0, with its numbers at 2^30 under ``rebase_tick``, and one for the
 WHILE node, whose launches are the captures of its set-condition kernel
@@ -208,7 +233,9 @@ GRAPH_CELLS = ("headline", "tpcc", "pps", "pps_wait_die",
                "headline_timestamp", "tpcc_timestamp", "headline_mvcc",
                "tpcc_mvcc", "headline_calvin", "tpcc_calvin", "pps_calvin",
                "headline_occ", "tpcc_occ", "pps_occ", "headline_maat",
-               "tpcc_maat", "pps_maat")
+               "tpcc_maat", "pps_maat", "headline_subticks",
+               "headline_timestamp_subticks", "pps_wait_die_dense",
+               "headline_read_committed")
 GRAPH_TICKS = 300
 #: the packs a headline tick sorts, as (columns, keys, lanes, shift)
 PACK_NAMES = {
@@ -230,8 +257,15 @@ def access_packs(eng, prefix):
     no unpermute (its access grants every request and sorts nothing).
     MAAT sorts twice, to validate: its chain sort (key, finishing first,
     ts, is_write, access tick, txn) and its squeeze sort (key, access
-    tick, ts, lane), both by 3 keys."""
-    N = eng.cfg.batch_size * eng.pool.max_req
+    tick, ts, lane), both by 3 keys.  The lock family's opt-ins: with
+    ``sub_ticks`` K, K sub-rounds of the lock sort (T/O: the decision
+    sort) and its unpermute, and the (ts, lane) rank of ``ts_groups`` at
+    B lanes; with ``dense_lock_state``, the window's (row, ts, payload)
+    request sort by 2 keys and its unpermute at B*W lanes; under NOLOCK
+    no sort at all."""
+    cfg = eng.cfg
+    B = cfg.batch_size
+    N = B * eng.pool.max_req
     if eng.plugin.name == "OCC":
         pack = (4, 2, N, 0)
         return {pack: f"{prefix} OCC validation sort"}, {pack: 1}
@@ -240,10 +274,33 @@ def access_packs(eng, prefix):
         return ({chain: f"{prefix} MAAT chain sort",
                  squeeze: f"{prefix} MAAT squeeze sort"},
                 {chain: 1, squeeze: 1})
+    lock_family = eng.plugin.name in ("NO_WAIT", "WAIT_DIE")
+    locking = cfg.isolation_level in ("SERIALIZABLE", "READ_COMMITTED")
+    if lock_family and cfg.isolation_level == "NOLOCK":
+        return {}, {}
+    if lock_family and locking and cfg.sub_ticks == 1 \
+            and eng.plugin._window_path(cfg):
+        # the dense-row window: the B*W request lanes sorted alone
+        n = B * min(cfg.acquire_window, eng.pool.max_req)
+        sort, unperm = (3, 2, n, 0), (2, 1, n, 0)
+        return ({sort: f"{prefix} dense window request sort",
+                 unperm: f"{prefix} dense window unpermute"},
+                {sort: 1, unperm: 1})
     if eng.plugin.name in ("TIMESTAMP", "MVCC"):
         pack, name = (7, 2, N, 0), "T/O and MVCC decision sort"
     else:
         pack, name = (3, 2, N, 1), "lock sort"
+    K = cfg.sub_ticks if (eng.plugin.name == "TIMESTAMP"
+                          or (lock_family and locking)) else 1
+    if K > 1:
+        # K sub-rounds of one sort and one unpermute, and the ts_groups
+        # rank of the B slots
+        groups = (2, 1, B, 0)
+        name = name.replace("T/O and MVCC", "T/O")
+        return ({pack: f"{prefix} sub-round {name}",
+                 (2, 1, N, 0): f"{prefix} sub-round unpermute",
+                 groups: f"{prefix} ts_groups rank"},
+                {pack: K, (2, 1, N, 0): K, groups: 1})
     names = {pack: f"{prefix} {name}", (2, 1, N, 0): f"{prefix} unpermute"}
     every = {pack: 1, (2, 1, N, 0): 1}
     if eng.plugin.name == "MVCC":
@@ -489,11 +546,17 @@ def library_call(cols, nk):
 def measure_pack(fused, name, cols, nk, shift):
     """The kernel on one pack of the main path: bit-equal to its plain
     version (with the path's shift and with 0), its launch plan, its time
-    per call (CUDA events) and on the device (torch.profiler, which must
-    see exactly 1 device kernel per call), the plain version's and one
-    torch.sort's time, and the bound.  The bound counts each column at
-    its own width; the times are those of the kernel's own int32 input
-    (the wrapper widens bools).  Restores the launch counters."""
+    per call (CUDA events), its device work per call (a CUDA graph
+    captured from one call must hold exactly 1 node, a kernel, while the
+    wrapper counts 1 launch: ``profile_tick.graph_nodes``) and its device
+    time per launch (the mean over the fused kernel's launches in a
+    torch.profiler trace of 20 calls, which can lose a launch), the plain
+    version's and one torch.sort's time, and the bound.  The bound counts
+    each column at its own width; the times are those of the kernel's
+    own int32 input (the wrapper widens bools).  Restores the launch
+    counters."""
+    from deneva_tpu_torch.profile_tick import breakdown, graph_nodes, \
+        trace_kernels
     n = cols[0].shape[0]
     for sh in sorted({0, shift}):
         err = compare(fused, cols, nk, sh)
@@ -506,12 +569,21 @@ def measure_pack(fused, name, cols, nk, shift):
     before = (fused.LAUNCHES, dict(fused.LAUNCHES_BY_PACK))
     call = lambda: fused.fused_sort_scan(cols, nk, shift)
     ms = cuda_ms(call)
-    dev_ms, dev_launches, sort_launches = device_ms(call, expect_sort=20)
+    n0 = fused.LAUNCHES
+    nodes = graph_nodes(call)
+    wrapped = fused.LAUNCHES - n0
+    per = breakdown(trace_kernels(call, 20, expect_sort=20), 20)
     fused.LAUNCHES, fused.LAUNCHES_BY_PACK = before[0], before[1]
-    if (dev_launches, sort_launches) != (1, 1):
-        raise AssertionError(f"{name}: {dev_launches} device kernels, "
-                             f"{sort_launches} of them the fused kernel, "
-                             "per call; expected 1 and 1")
+    if nodes != {"kernel": 1} or wrapped != 1:
+        raise AssertionError(f"{name}: one call captured {nodes} while the "
+                             f"wrapper counted {wrapped} launches; expected "
+                             "1 kernel node and 1 launch")
+    traced = per["fused_sort_scan_launches"]
+    if not traced:
+        raise AssertionError(f"{name}: the profiler traced no launch of "
+                             "the fused kernel in 20 calls")
+    dev_launches = nodes["kernel"]
+    dev_ms = per["fused_sort_scan_us"] / traced / 1e3
     plain_ms = cuda_ms(lambda: fused.fused_sort_scan_plain(cols, nk, shift))
     library = library_call(cols, nk)
     library_ms = cuda_ms(library)
@@ -521,8 +593,10 @@ def measure_pack(fused, name, cols, nk, shift):
         f"{plan['tile']} records ({plan['tiles']} tiles), merge "
         f"levels={plan['levels']}, chunk={plan['chunk']}")
     say("kernel", f"{name}: bit-equal, kernel {ms:.4f} ms per call "
-        f"({dev_ms:.4f} ms of it on the device in {dev_launches:g} "
-        f"device kernel per call, torch.profiler), plain "
+        f"({dev_ms:.4f} ms of it on the device, the mean of the "
+        f"{traced * 20:g} launches torch.profiler traced in 20 calls; "
+        f"{dev_launches:g} device kernel per call, a captured graph's "
+        f"nodes), plain "
         f"{plain_ms:.4f} ms, torch.sort {library_ms:.4f} ms "
         f"({library_dev_ms:.4f} ms on the device), bound {bms:.5f} ms "
         f"({by})")
@@ -1738,6 +1812,255 @@ def phase_maat(cells, Engine, timed_run, fused, rebase, dev, rows, names,
     return reb, body
 
 
+#: the lock family's opt-in cells (``cells.py``): phase 18 and the graph
+#: phase
+LO_CELLS = ("headline_subticks", "headline_timestamp_subticks",
+            "pps_wait_die_dense", "headline_read_committed")
+#: lock opt-ins: timed eager ticks, ticks held CPU == CUDA, ticks held
+#: eager == replayed one by one, and ticks of the two-engine checks
+LO_TICKS = 50
+LO_CPU_TICKS = 20
+LO_STEP_TICKS = 12
+LO_PAIR_TICKS = 50
+#: the sub-rounds of the sub-tick cells
+LO_K = 8
+
+
+def line_without_host_keys(eng, state):
+    """The ``[summary]`` line less the host-process keys (read from /proc
+    by the process that prints it)."""
+    return [kv for kv in eng.summary_line(state).split(",")
+            if not kv.startswith(("mem_util=", "cpu_util="))]
+
+
+def same_state(label, a_eng, a, b_eng, b, skip_db=()):
+    """Summary, ``[summary]`` line, data, tables, CC arrays (less those
+    named in `skip_db`) and txn slots of two flushed runs equal; raises
+    naming what differs."""
+    sa, sb = a_eng.summary(a), b_eng.summary(b)
+    diff = {k: (sa[k], sb.get(k)) for k in sa
+            if k != "ccl_samples" and sa[k] != sb.get(k)}
+    if diff or sa != sb:
+        raise AssertionError(f"{label}: summaries differ: {diff}")
+    if line_without_host_keys(a_eng, a) != line_without_host_keys(b_eng, b):
+        raise AssertionError(f"{label}: [summary] lines differ")
+    bad = [] if torch.equal(a.data.cpu(), b.data.cpu()) else ["data"]
+    for part in ("tables", "db"):
+        x, y = getattr(a, part), getattr(b, part)
+        if part == "db":
+            x = {k: v for k, v in x.items() if k not in skip_db}
+            y = {k: v for k, v in y.items() if k not in skip_db}
+        if sorted(x) != sorted(y):
+            bad.append(part)
+            continue
+        bad += [f"{part}.{k}" for k in x
+                if not torch.equal(x[k].cpu(), y[k].cpu())]
+    bad += [f"txn.{f}" for f in a.txn._fields
+            if not torch.equal(getattr(a.txn, f).cpu(),
+                               getattr(b.txn, f).cpu())]
+    if bad:
+        raise AssertionError(f"{label}: {bad} differ")
+    return sb
+
+
+def trace_once(name, eng, state, fused, per_tick):
+    """One torch.profiler trace of TRACE_TICKS eager ticks, taken once (no
+    retry): the host records of the sort wrapper and of torch.cummax in
+    its recorded step are exact, so the tick must show `per_tick` sort
+    calls and 0 torch.cummax calls and 0 cummax device kernels in this
+    one trace.  Returns the per-tick numbers and the state."""
+    from deneva_tpu_torch.profile_tick import breakdown, trace_kernels
+    box, host = [state], {}
+    orig = fused._fused_sort_scan_cuda
+
+    def recorded(*a, **k):
+        with torch.profiler.record_function("fused_sort_scan_wrapper"):
+            return orig(*a, **k)
+
+    def tick():
+        box[0] = eng.tick(box[0])
+
+    fused._fused_sort_scan_cuda = recorded
+    try:
+        kernels = trace_kernels(tick, TRACE_TICKS, None, host)
+    finally:
+        fused._fused_sort_scan_cuda = orig
+    # the annotation's own span on the device timeline is no kernel
+    per = breakdown([e for e in kernels
+                     if e.key != "fused_sort_scan_wrapper"], TRACE_TICKS)
+    calls = host.get("fused_sort_scan_wrapper", 0) / TRACE_TICKS
+    cummax = host.get("aten::_cummax_helper", 0) / TRACE_TICKS
+    if calls != per_tick or cummax != 0 or per["cummax_launches"] != 0:
+        raise AssertionError(
+            f"{name}: one trace of {TRACE_TICKS} ticks: {calls} sort calls "
+            f"per tick (want {per_tick}), {cummax} torch.cummax calls and "
+            f"{per['cummax_launches']} cummax device kernels (want 0)")
+    per["sort_calls"] = calls
+    return per, box[0]
+
+
+def step_equal(name, eng, ticks):
+    """`ticks` ticks from the cell's initial state, eager and replayed one
+    at a time, every tensor of the two states equal after each tick."""
+    from deneva_tpu_torch.engine.graph import state_items
+    se = eng.init_state()
+    sg = eng.advance(0, eng.init_state(), compiled=True)
+    for t in range(ticks):
+        se = eng.advance(1, se)
+        sg = eng.advance(1, sg, compiled=True)
+        bad = [k for (k, x), (_, y) in zip(state_items(se), state_items(sg))
+               if not torch.equal(x, y)]
+        if bad or se.host_tick != sg.host_tick:
+            raise AssertionError(f"{name}: tick {t}: eager and replayed "
+                                 f"states differ: {bad}")
+    eng._flush_body(se)
+    eng._flush_body(sg)
+    same_state(f"{name} eager == replayed", eng, se, eng, sg)
+
+
+def lock_cell(cells, name, Engine, timed_run, fused, dev, rows):
+    """One opt-in cell on the card: LO_TICKS eager ticks timed after the
+    warm-up, with the sort kernel's launches by pack (``graph_packs``; the
+    access phase's 2K + 1 a tick on the sub-tick cells), 0 fallbacks and the increment
+    oracle; one trace (``trace_once``) and the eager idle share; the host
+    syncs of a tick (0 on YCSB, the effect choice on pps); every pack the
+    access phase sorts, taken from a live tick, held bit-equal to the plain
+    version and timed as a row of its own (into `rows`, by cell and pack);
+    then eager == replayed tick by tick.  Returns the engine's pool."""
+    eng = Engine(cells.config(name), device=dev)
+    acc_names, every = access_packs(eng, name)
+    if name in ("headline_subticks", "headline_timestamp_subticks") \
+            and sum(every.values()) != 2 * LO_K + 1:
+        raise AssertionError(f"{name}: {every} sorts a tick planned")
+    # the access phase's sorts, and on pps the compacted effect body's
+    every = graph_packs(eng)[1]
+    per_tick = sum(every.values())
+    state = eng.run(WARMUP_TICKS)
+    before = eng.summary(state)["txn_cnt"]
+    fused.reset_fallbacks()
+    fused.reset_launches()
+    state, sec = timed_run(eng, LO_TICKS, state)
+    by_pack = dict(fused.LAUNCHES_BY_PACK)
+    s = eng.summary(state)
+    want = {p: n * LO_TICKS for p, n in every.items()}
+    if by_pack != want or fused.fallback_snapshot()["count"]:
+        raise AssertionError(f"{name}: launches by pack {by_pack}, want "
+                             f"{want}; fallbacks "
+                             f"{fused.fallback_snapshot()}")
+    if int(state.data.sum().item()) != s["write_cnt"] \
+            or not s["txn_cnt"] > 0:
+        raise AssertionError(f"{name}: data.sum() != write_cnt or no commit")
+    print(eng.summary_line(state))
+    per, state = trace_once(name, eng, state, fused, per_tick)
+    eager_ms = sec * 1e3
+    want_syncs = 1 if eng.cfg.workload != "YCSB" else 0
+    files = ("base.py",) if want_syncs else ()
+    box = [state]
+
+    def tick():
+        box[0] = eng.tick(box[0])
+
+    syncs, _, sites = loop_syncs(eng, tick, TRACE_TICKS, want_syncs, files)
+    say("lock", f"{name}: {LO_TICKS} eager ticks {eager_ms:.4f} ms per tick "
+        f"(cuda events), commits_per_tick="
+        f"{(s['txn_cnt'] - before) / LO_TICKS} abort_rate="
+        f"{s['abort_rate']:.6f} twopl_wait_cnt={s['twopl_wait_cnt']}; sort "
+        f"launches by pack {by_pack} ({per_tick} per tick), 0 fallbacks")
+    say("lock", f"{name}: one trace, no retry: {per['sort_calls']:g} sort "
+        f"calls per tick (host records of the wrapper), "
+        f"{per['fused_sort_scan_launches']:g} fused device kernels, "
+        f"torch.cummax 0 calls and {per['cummax_launches']:g} device "
+        f"kernels; device busy {per['device_busy_us']:.1f} us, "
+        f"{per['kernel_launches']:.1f} device launches per tick; eager idle "
+        f"{1 - per['device_busy_us'] / 1e3 / eager_ms:.3f}; host syncs "
+        f"{syncs:g} per tick at {sites or 'no line'}")
+    packs = capture_packs(fused, tick)
+    eng._flush_body(box[0])
+    for pack, cols in sorted(packs.items()):
+        if pack not in acc_names:
+            continue
+        r = measure_pack(fused, acc_names[pack], cols, pack[1], pack[3])
+        r.update(pack=pack, launches=by_pack[pack], replayed=0)
+        rows[(name, pack)] = dict(r, label=acc_names[pack])
+    step_equal(name, eng, LO_STEP_TICKS)
+    say("lock", f"{name}: {LO_STEP_TICKS} ticks from the start, eager == "
+        "replayed tick by tick (every tensor of the state)")
+    pool = eng.pool
+    del eng, state, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pool
+
+
+def phase_lock_optins(cells, Engine, timed_run, fused, dev):
+    """The lock family's arbitration opt-ins on the card (phase 18 of the
+    module docstring).  Returns the rows of their packs, by (cell,
+    pack)."""
+    rows = {}
+    pools = {}
+    for name in LO_CELLS:
+        pools[name] = lock_cell(cells, name, Engine, timed_run, fused, dev,
+                                rows)
+        s, cpu, sc, gpu, sg = phase_cpu_equal(
+            cells, name, Engine, dev, LO_CPU_TICKS, pool=pools[name])
+        same_state(f"{name} CUDA == CPU", gpu, sg, cpu, sc)
+        del cpu, sc, gpu, sg
+
+    # dense == the sorted join, one pool each, WARMUP_TICKS +
+    # HEADLINE_TICKS eager ticks
+    for dense, plain, pool in (
+            ("headline", "headline", None),
+            ("pps_wait_die_dense", "pps_wait_die", pools["pps_wait_die_dense"])):
+        over = {"dense_lock_state": True} if dense == "headline" else {}
+        a = Engine(cells.config(dense, **over), pool=pool, device=dev)
+        b = Engine(cells.config(plain), pool=a.pool, device=dev)
+        sa, sb = a.run(WARMUP_TICKS), b.run(WARMUP_TICKS)
+        c0 = a.summary(sa)["txn_cnt"]
+        sa, sb = a.run(HEADLINE_TICKS, sa), b.run(HEADLINE_TICKS, sb)
+        s = same_state(f"{dense} dense == {plain} sorted join", a, sa, b, sb,
+                       skip_db=("lk_held",))
+        if "lk_held" in sb.db or not bool((sa.db["lk_held"] == 2**31 - 1)
+                                          .all()):
+            raise AssertionError(f"{dense}: lk_held not at its identity")
+        say("lock", f"dense_lock_state == the sorted join on one {plain} "
+            f"pool, {WARMUP_TICKS} + {HEADLINE_TICKS} ticks: summary, "
+            f"[summary], data, {len(sa.tables)} tables and txn slots equal; "
+            f"commits_per_tick={(s['txn_cnt'] - c0) / HEADLINE_TICKS} "
+            f"abort_rate={s['abort_rate']:.6f}; lk_held at its identity")
+        del a, b, sa, sb
+
+    # pipeline_exchange == the in-order rounds
+    a = Engine(cells.config("headline_subticks"), device=dev)
+    b = Engine(cells.config("headline_subticks", pipeline_exchange=True),
+               pool=a.pool, device=dev)
+    s = same_state("headline_subticks pipelined == in order", a,
+                   a.run(LO_PAIR_TICKS), b, b.run(LO_PAIR_TICKS))
+    say("lock", f"headline_subticks: pipeline_exchange == the in-order "
+        f"rounds over {LO_PAIR_TICKS} ticks (txn_cnt={s['txn_cnt']}, "
+        f"abort_rate={s['abort_rate']:.6f})")
+    del a, b
+
+    # READ_UNCOMMITTED and NOLOCK on the headline: CPU == CUDA, eager ==
+    # replayed
+    for level in ("READ_UNCOMMITTED", "NOLOCK"):
+        s, cpu, sc, gpu, sg = phase_cpu_equal(
+            cells, "headline", Engine, dev, LO_PAIR_TICKS,
+            isolation_level=level)
+        same_state(f"headline {level} CUDA == CPU", gpu, sg, cpu, sc)
+        rep = gpu.run_compiled(LO_PAIR_TICKS)
+        s = same_state(f"headline {level} eager == replayed", gpu, sg, gpu,
+                       rep)
+        if level == "NOLOCK" and s["total_txn_abort_cnt"] != 0:
+            raise AssertionError("an abort under NOLOCK")
+        say("lock", f"headline {level}: {LO_PAIR_TICKS} ticks CUDA == CPU "
+            f"and eager == replayed (txn_cnt={s['txn_cnt']}, abort_rate="
+            f"{s['abort_rate']:.6f})")
+        del cpu, sc, gpu, sg, rep
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def graph_packs(eng):
     """The names of the packs the cell's tick sorts, by (columns, keys,
     lanes, shift), and the launches of each per tick on the eager path
@@ -2043,6 +2366,7 @@ def main() -> int:
     occ, loop = phase_occ(cells, Engine, timed_run, fused, dev, pps_pool)
     reb_maat, maat_body = phase_maat(cells, Engine, timed_run, fused, rebase,
                                      dev, rows, names, by_pack, pps_pool)
+    lock_rows = phase_lock_optins(cells, Engine, timed_run, fused, dev)
 
     from deneva_tpu_torch.ops import device_loop
     gpu_line = phase_gpu()
@@ -2059,6 +2383,11 @@ def main() -> int:
             # sort
             occ[name]["replayed"] = rec["replayed"].pop(occ[name]["pack"],
                                                         0)
+        # so are the packs of the lock opt-in cells that phase 18 measured
+        own = {p for (cell, p) in lock_rows if cell == name}
+        for p in own:
+            lock_rows[(name, p)]["replayed"] = rec["replayed"].pop(p, 0)
+            rec["packs"].pop(p, None)
         # the packs only the graph path sorts (the full-width effect body):
         # held to the plain version and timed; their launches are the graph
         # path's wrapper count (warm-up and capture)
@@ -2106,6 +2435,9 @@ def main() -> int:
     for name, r in occ.items():
         kernels.append(sort_row(f"{name} OCC validation sort", r["pack"], r,
                                 r["launches"], r["replayed"]))
+    for (name, pack), r in sorted(lock_rows.items()):
+        kernels.append(sort_row(r["label"], pack, r, r["launches"],
+                                r["replayed"]))
     kernels.append({
         "name": "graph_while[WHILE node: one pass of a bare loop, add + "
                 "compare + set-condition; plain = the host loop]",

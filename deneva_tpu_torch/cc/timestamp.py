@@ -25,9 +25,9 @@ earlier in this tick.  Writers never block one another, so several txns
 can commit writes to one row in one tick (TPC-C's restock chain takes any
 depth, ``workloads/tpcc.py``).
 
-This slice carries the one-round path.  ``sub_ticks > 1``, the depgraph
-blocker plane and abort attribution raise (``check_slice`` refuses them
-first).
+``sub_ticks > 1`` runs K timestamp-ordered sub-rounds of the same
+decision (``_access_subticked``).  The depgraph blocker plane and abort
+attribution raise (``check_slice`` refuses them first).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from deneva_tpu_torch.cc import compact as ccompact
+from deneva_tpu_torch.cc import twopl
 from deneva_tpu_torch.cc.base import AccessDecision, CCPlugin
 from deneva_tpu_torch.config import Config
 from deneva_tpu_torch.engine.state import (
@@ -52,10 +53,8 @@ def raise_max(dst: torch.Tensor, row, mask, vals, fill: int = 0) -> None:
     """``dst[row] = max(dst[row], vals)`` where ``mask``, in place.  Lanes
     outside the mask put ``fill`` (``dst`` holds values >= fill) at a row
     spread by lane, in bounds and off any single hot row."""
-    lanes = torch.arange(row.shape[0], dtype=I32, device=row.device)
-    idx = torch.where(mask, row, lanes % dst.shape[0])
-    dst.scatter_reduce_(0, idx.to(I64), torch.where(mask, vals, fill),
-                        "amax")
+    dst.scatter_reduce_(0, seg.spread_index(mask, row, dst.shape[0]),
+                        torch.where(mask, vals, fill), "amax")
 
 
 def pending_before(key, ts, is_write, held, req, w_abort, reduce):
@@ -117,12 +116,14 @@ class Timestamp(CCPlugin):
 
     def access(self, cfg: Config, db: dict, txn: TxnState, active):
         unported = [name for name, on in (
-            ("sub_ticks > 1", cfg.sub_ticks > 1), ("depgraph", cfg.depgraph),
+            ("depgraph", cfg.depgraph),
             ("abort_attribution", cfg.abort_attribution)) if on]
         if unported:
             raise NotImplementedError(
-                "TIMESTAMP in the port runs the one-round path only; not "
+                "TIMESTAMP in the port has no blocker or reason plane; not "
                 "ported: " + ", ".join(unported))
+        if cfg.sub_ticks > 1:
+            return self._access_subticked(cfg, db, txn, active)
         ent = make_entries(txn, active, window=cfg.acquire_window)
         B, R = txn.keys.shape
         n_rows = db["wts"].shape[0]
@@ -157,6 +158,56 @@ class Timestamp(CCPlugin):
                   tsw.expand(rkey.shape).reshape(-1))
         return AccessDecision(grant=grant, wait=wait_e.reshape(B, R),
                               abort=abort_e.reshape(B, R)), db
+
+    def _access_subticked(self, cfg: Config, db: dict, txn: TxnState,
+                          active):
+        """K timestamp-ordered sub-rounds (Config.sub_ticks), each one
+        ``_decide`` (the (key, ts) decision sort and its unpermute on the
+        kernel).  Later groups no longer see the prewrites of txns an
+        earlier group's request aborted, and do see the writes it granted.
+        ``wts``/``rts`` are gathered once at the (B, R) lanes' clipped
+        keys: a granted read's rts raise can only pass the ts of later,
+        larger-ts writers, which it never aborts, so the inputs hold for
+        every round.  Granted reads raise ``rts`` once, at the end."""
+        K = cfg.sub_ticks
+        B, R = txn.keys.shape
+        dev = txn.keys.device
+        ridx = torch.arange(R, dtype=I32, device=dev)[None, :]
+        cur = txn.cursor[:, None]
+        req_base = active[:, None] & (ridx == cur) \
+            & (cur < txn.n_req[:, None])
+        held_base = active[:, None] & (ridx < cur)
+        ts_e = txn.ts[:, None].expand(B, R)
+
+        n_rows = db["wts"].shape[0]
+        kclip = torch.clamp(txn.keys, 0, n_rows - 1).reshape(-1).to(I64)
+        wts_k = db["wts"][kclip].reshape(B, R)
+        rts_k = db["rts"][kclip].reshape(B, R)
+        if cfg.ts_twr:
+            w_abort = ts_e < rts_k
+        else:
+            w_abort = (ts_e < rts_k) | (ts_e < wts_k)
+        r_abort = ts_e < wts_k
+
+        group = twopl.ts_groups(txn.ts, active, K)
+        G = torch.zeros((B, R), dtype=torch.bool, device=dev)
+        Wt = torch.zeros_like(G)
+        A = torch.zeros_like(G)
+        dead = torch.zeros(B, dtype=torch.bool, device=dev)
+        flat = lambda x: x.reshape(-1)
+        tsf, iwf = flat(ts_e), flat(txn.is_write)
+        wabf, rabf = flat(w_abort), flat(r_abort)
+        for k in range(K):
+            req_m = req_base & (active & (group == k) & ~dead)[:, None]
+            held_m = (held_base | G) & ~dead[:, None]
+            key_f = flat(torch.where(held_m | req_m, txn.keys, NULL_KEY))
+            g, w, a = (x.reshape(B, R) for x in _decide(
+                key_f, tsf, iwf, flat(held_m), flat(req_m), wabf, rabf))
+            G, Wt, A = G | g, Wt | w, A | a
+            dead = dead | a.any(dim=1)
+
+        raise_max(db["rts"], flat(txn.keys), flat(G & ~txn.is_write), tsf)
+        return AccessDecision(grant=G, wait=Wt, abort=A), db
 
     def on_commit(self, cfg: Config, db: dict, txn: TxnState, committed,
                   commit_ts, tick) -> dict:

@@ -56,6 +56,21 @@
   ``maat_lr``/``maat_lw`` beside 241.8 MB of tables.
 - ``pps_maat``: the ``pps`` cell under MAAT.  These three are Deneva's
   MAAT column of the VLDB'17 grid at one node.
+- ``headline_subticks``: the ``headline`` cell with ``sub_ticks=8``, the K
+  at which the JAX package's 2PL abort rate meets the sequential
+  oracle's (``PARITY.md``): 8 lock sorts and 8 unpermutes of 81,920
+  lanes and one 8,192-lane ``ts_groups`` sort per tick.
+- ``headline_timestamp_subticks``: ``headline_timestamp`` with
+  ``sub_ticks=8``: 8 T/O decision sorts and 8 unpermutes per tick, and
+  the ``ts_groups`` sort.
+- ``pps_wait_die_dense``: ``pps_wait_die`` with ``dense_lock_state``: the
+  dense-row window arbitration (a per-row held-lock scratch of 23,575
+  int32) sorts the 8,192 request lanes in place of the 172,032 entry
+  lanes; its results equal ``pps_wait_die``'s.
+- ``headline_read_committed``: ``headline`` at READ_COMMITTED, the second
+  rung of Deneva's isolation-level experiment (read locks released after
+  the read).
+Nothing of these four is cut.
 """
 
 from __future__ import annotations
@@ -94,6 +109,13 @@ CELLS["pps_occ"] = dict(CELLS["pps"], cc_alg="OCC")
 CELLS["headline_maat"] = dict(CELLS["headline"], cc_alg="MAAT")
 CELLS["tpcc_maat"] = dict(CELLS["tpcc"], cc_alg="MAAT")
 CELLS["pps_maat"] = dict(CELLS["pps"], cc_alg="MAAT")
+CELLS["headline_subticks"] = dict(CELLS["headline"], sub_ticks=8)
+CELLS["headline_timestamp_subticks"] = dict(CELLS["headline_timestamp"],
+                                            sub_ticks=8)
+CELLS["pps_wait_die_dense"] = dict(CELLS["pps_wait_die"],
+                                   dense_lock_state=True)
+CELLS["headline_read_committed"] = dict(CELLS["headline"],
+                                        isolation_level="READ_COMMITTED")
 
 
 def config(name: str, **overrides) -> Config:

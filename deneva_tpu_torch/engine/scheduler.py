@@ -13,8 +13,11 @@ once.  One tick:
 
 This is the port of ``deneva_tpu/engine/scheduler.py`` for one slice:
 YCSB, TPC-C or PPS under NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN, OCC
-or MAAT, single shard, SERIALIZABLE, NORMAL mode, commit before access, with
-``fused_arbitrate`` on or off and every other opt-in flag off.  ``check_slice`` refuses
+or MAAT, single shard, NORMAL mode, commit before access, at any
+isolation level (NO_WAIT and WAIT_DIE read it), with ``sub_ticks``
+(NO_WAIT, WAIT_DIE, TIMESTAMP), ``dense_lock_state`` (NO_WAIT, WAIT_DIE),
+``fused_arbitrate`` and ``pipeline_exchange`` on or off and every other
+opt-in flag off.  ``check_slice`` refuses
 anything else; its single-shard rule also covers the JAX engine's ``part_cnt == 1``
 assertion for a workload with commit effects.  Every observatory hook of
 the reference tick is a no-op at those flags and is left out.
@@ -46,8 +49,8 @@ import torch
 from deneva_tpu_torch import cc as cc_registry
 from deneva_tpu_torch import workloads as wl_registry
 from deneva_tpu_torch.config import (
-    CALVIN, MAAT, MODE_NORMAL, MVCC, NO_WAIT, OCC, PPS, SERIALIZABLE,
-    TIMESTAMP, TPCC, WAIT_DIE, YCSB, Config, optin_flags,
+    CALVIN, MAAT, MODE_NORMAL, MVCC, NO_WAIT, OCC, PPS, TIMESTAMP, TPCC,
+    WAIT_DIE, YCSB, Config, optin_flags,
 )
 from deneva_tpu_torch.device import resolve_device
 from deneva_tpu_torch.engine.state import (
@@ -103,6 +106,11 @@ STAT_KEYS_F32 = (
 LAT_SAMPLES = 1 << 14
 
 
+#: opt-in flags the slice admits: the fused kernel, and the single-shard
+#: leg of ``pipeline_exchange`` (whose values equal the in-order sub-rounds')
+ADMITTED_OPTINS = ("fused_arbitrate", "pipeline_exchange")
+
+
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for a config outside the ported slice."""
     bad = []
@@ -111,26 +119,23 @@ def check_slice(cfg: Config) -> None:
         bad.append(f"cc_alg={cfg.cc_alg}")
     if cfg.workload not in (YCSB, TPCC, PPS):
         bad.append(f"workload={cfg.workload}")
-    if cfg.isolation_level != SERIALIZABLE:
-        bad.append(f"isolation_level={cfg.isolation_level}")
     if cfg.mode != MODE_NORMAL:
         bad.append(f"mode={cfg.mode}")
     if cfg.node_cnt != 1 or cfg.part_cnt != 1:
         bad.append(f"node_cnt={cfg.node_cnt}, part_cnt={cfg.part_cnt}")
-    if cfg.sub_ticks > 1:
-        bad.append(f"sub_ticks={cfg.sub_ticks}")
-    if cfg.dense_lock_state:
-        bad.append("dense_lock_state")
     if cfg.commit_after_access:
         bad.append("commit_after_access")
     for name, flag in optin_flags().items():
-        if name != "fused_arbitrate" and getattr(cfg, name) != flag.default:
+        if name not in ADMITTED_OPTINS \
+                and getattr(cfg, name) != flag.default:
             bad.append(name)
     if bad:
         raise NotImplementedError(
             "outside the ported slice (YCSB, TPC-C or PPS under NO_WAIT, "
             "WAIT_DIE, TIMESTAMP, MVCC, CALVIN, OCC or MAAT, single shard, "
-            "default flags): "
+            "NORMAL mode, commit before access; any isolation_level, "
+            "sub_ticks, dense_lock_state, fused_arbitrate and "
+            "pipeline_exchange, every other flag at its default): "
             + ", ".join(bad))
 
 

@@ -86,6 +86,15 @@ def sort_by(keys: tuple, payload: tuple):
     return out[:nk], out[nk:]
 
 
+def spread_index(mask: torch.Tensor, row: torch.Tensor,
+                 n_rows: int) -> torch.Tensor:
+    """The int64 index of an in-place scatter whose masked lanes go to
+    ``row`` and whose other lanes put the reduction's identity at a row
+    spread by lane (in bounds, off any single hot row): the port's form of
+    a ``mode="drop"`` scatter-max or scatter-min."""
+    return torch.where(mask, row, _iota(row) % n_rows).to(I64)
+
+
 def _iota(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(x.shape[0], dtype=I32, device=x.device)
 
@@ -234,29 +243,28 @@ def _seg_scan(vals: torch.Tensor, starts: torch.Tensor, op: str, identity):
 def seg_reduce(vals: torch.Tensor, starts: torch.Tensor, op: str,
                sidx: Optional[torch.Tensor] = None):
     """Whole-segment reduction broadcast back to every member;
-    op in {"min", "max", "sum"}.  "sum" adds each member into the slot at
-    its segment's start index ``sidx`` (an order-free int32 ``index_add_``
-    that wraps like the reference's int32 adds) and reads that slot back;
-    pass ``sidx`` to run no cummax."""
+    op in {"min", "max", "sum"}.  Each member goes into the slot at its
+    segment's start index ``sidx`` by one order-free reduction (an int32
+    ``index_add_`` that wraps like the reference's int32 adds, or a
+    ``scatter_reduce_`` "amin"/"amax" onto the op's identity), and every
+    member reads that slot back; pass ``sidx`` to run no cummax."""
     lo, hi = _int_bounds(vals.dtype)
-    if op == "min":
-        pre = _seg_scan(vals, starts, "min", hi)
-        suf = seg_suffix_min(vals, starts, hi)
-        return torch.minimum(torch.minimum(pre, vals), suf)
-    if op == "max":
-        pre = _seg_scan(vals, starts, "max", lo)
-        suf = seg_suffix_max(vals, starts, lo)
-        return torch.maximum(torch.maximum(pre, vals), suf)
+    at = (start_index(starts) if sidx is None else sidx).to(I64)
     if op == "sum":
-        at = (start_index(starts) if sidx is None else sidx).to(I64)
-        return torch.zeros_like(vals).index_add_(0, at, vals) \
-            .index_select(0, at)
-    raise ValueError(op)
+        out = torch.zeros_like(vals).index_add_(0, at, vals)
+    elif op in ("min", "max"):
+        out = torch.full_like(vals, hi if op == "min" else lo) \
+            .scatter_reduce_(0, at, vals, "amin" if op == "min" else "amax")
+    else:
+        raise ValueError(op)
+    return out.index_select(0, at)
 
 
-def seg_min_where(vals, where, starts, big: int):
-    """Segment-wide min of vals over elements with `where` set; `big` if none."""
-    return seg_reduce(torch.where(where, vals, big), starts, "min")
+def seg_min_where(vals, where, starts, big: int,
+                  sidx: Optional[torch.Tensor] = None):
+    """Segment-wide min of vals over elements with `where` set; `big` if
+    none (``seg_reduce`` "min", at ``sidx`` when given)."""
+    return seg_reduce(torch.where(where, vals, big), starts, "min", sidx)
 
 
 def seg_max_where(vals, where, starts, small: int):

@@ -23,7 +23,8 @@ tick that synced would raise.  ``--table PATH`` writes every device
 kernel of the trace.  Needs a CUDA device.
 
 ``trace_kernels`` and ``breakdown`` are also what ``chip_smoke.py`` and
-``tests/test_torch_cuda.py`` count device kernels with.
+``tests/test_torch_cuda.py`` count device kernels with; ``graph_nodes``
+counts the device work of one call exactly, from a CUDA graph capture.
 """
 
 from __future__ import annotations
@@ -108,6 +109,43 @@ def trace_kernels(fn, reps: int, expect_sort=None,
             (e.key, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CPU)
     return kernels
+
+
+#: CUgraphNodeType values (cuda.h) of the nodes a capture of stream work
+#: makes
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+               4: "graph", 5: "empty", 6: "wait_event", 7: "event_record"}
+
+
+def graph_nodes(fn) -> dict:
+    """The device work of one call of `fn`, counted exactly: the nodes, by
+    type, of a CUDA graph captured from the call (every launch the call
+    makes on the stream becomes one node; a profiler trace can lose or
+    gain kernels).  `fn` must have run once outside a capture."""
+    import ctypes
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    lib = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(lib.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(lib.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    counts: dict = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(lib.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)), "cuGraphNodeGetType")
+        name = _NODE_TYPES.get(kind.value, f"type {kind.value}")
+        counts[name] = counts.get(name, 0) + 1
+    graph.reset()
+    return counts
 
 
 def breakdown(kernels, reps: int) -> dict:

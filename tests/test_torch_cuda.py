@@ -17,7 +17,9 @@ torch = pytest.importorskip("torch")
 from deneva_tpu_torch.config import Config  # noqa: E402
 from deneva_tpu_torch.engine.scheduler import Engine  # noqa: E402
 from deneva_tpu_torch.ops import device_loop, fused, rebase  # noqa: E402
-from deneva_tpu_torch.profile_tick import breakdown, trace_kernels  # noqa: E402
+from deneva_tpu_torch.profile_tick import (  # noqa: E402
+    breakdown, graph_nodes, trace_kernels,
+)
 from deneva_tpu_torch.storage.ordered import OrderedIndex  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -50,13 +52,16 @@ def _check(cols, num_keys, shift=0):
     assert torch.equal(got[2], want[2])
 
 
-def _assert_one_device_launch(fn, reps=5):
-    """Each of `reps` traced calls of `fn` ran one device kernel, the fused
-    kernel (torch.profiler; a trace that dropped a kernel event is taken
-    again)."""
-    per = breakdown(trace_kernels(fn, reps, expect_sort=reps), reps)
-    assert per["fused_sort_scan_launches"] == 1, per
-    assert per["kernel_launches"] == 1, per
+def _assert_one_device_launch(fn):
+    """One call of `fn` runs one device kernel, the fused kernel: a CUDA
+    graph captured from the call holds exactly one node, a kernel, while
+    the wrapper counts one launch (``profile_tick.graph_nodes``; a
+    torch.profiler trace can lose a launch)."""
+    fn()
+    before = fused.LAUNCHES
+    nodes = graph_nodes(fn)
+    assert nodes == {"kernel": 1}, nodes
+    assert fused.LAUNCHES == before + 1
 
 
 @pytest.mark.parametrize("n,num_keys,n_cols", [
@@ -729,6 +734,93 @@ def test_graph_replay_traced_launches(dev):
 
     per = breakdown(trace_kernels(replay, 6, expect_sort=6 * 7), 6)
     assert per["fused_sort_scan_launches"] == 7, per
+
+
+#: the lock family's arbitration opt-ins, by name: (plugin, workload,
+#: overrides)
+LOCK_OPTINS = {
+    "nowait_subticks": ("NO_WAIT", "ycsb", dict(sub_ticks=4)),
+    "waitdie_subticks_pipelined": ("WAIT_DIE", "ycsb",
+                                   dict(sub_ticks=4, pipeline_exchange=True)),
+    "timestamp_subticks": ("TIMESTAMP", "ycsb", dict(sub_ticks=4)),
+    "timestamp_subticks_tpcc": ("TIMESTAMP", "tpcc", dict(sub_ticks=4)),
+    "nowait_dense": ("NO_WAIT", "ycsb", dict(dense_lock_state=True)),
+    "waitdie_dense_window6": ("WAIT_DIE", "ycsb",
+                              dict(dense_lock_state=True, acquire_window=6)),
+    "waitdie_dense_pps": ("WAIT_DIE", "pps", dict(dense_lock_state=True)),
+    "nowait_dense_tpcc": ("NO_WAIT", "tpcc", dict(dense_lock_state=True)),
+    "waitdie_read_committed": ("WAIT_DIE", "ycsb",
+                               dict(isolation_level="READ_COMMITTED")),
+    "nowait_read_uncommitted": ("NO_WAIT", "ycsb",
+                                dict(isolation_level="READ_UNCOMMITTED")),
+    "waitdie_nolock": ("WAIT_DIE", "ycsb", dict(isolation_level="NOLOCK")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOCK_OPTINS))
+def test_lock_optin_engine_cuda_matches_cpu_and_replay(dev, case):
+    # CUDA == CPU after 40 eager ticks, and 40 replayed ticks == the eager
+    # ones: the sub-rounds, the dense window (its scratch in place) and
+    # the isolation levels on the kernel, with no host read in a replay
+    cc, workload, over = LOCK_OPTINS[case]
+    cfg = Config(cc_alg=cc, fused_arbitrate=True,
+                 **{**GRAPH_CFGS[workload], **over})
+    gpu = Engine(cfg, device=dev)
+    cpu = Engine(cfg, pool=gpu.pool, device="cpu")
+    sg, sc = gpu.run(40), cpu.run(40)
+    assert gpu.summary(sg) == cpu.summary(sc)
+    assert gpu.summary(sg)["txn_cnt"] > 0
+    assert torch.equal(sg.data.cpu(), sc.data)
+    for part in ("tables", "db"):
+        for k, v in getattr(sc, part).items():
+            assert torch.equal(getattr(sg, part)[k].cpu(), v), k
+    for f in sc.txn._fields:
+        assert torch.equal(getattr(sg.txn, f).cpu(), getattr(sc.txn, f)), f
+    rep = gpu.run_compiled(40)
+    _assert_same_run(gpu, sg, rep)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gpu.advance(3, rep, compiled=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_subtick_rounds_launch_2k_plus_1_sorts(dev):
+    # K rounds of a lock sort and an unpermute, and the ts_groups rank:
+    # 2K + 1 launches a tick, eager and per replay
+    K = 4
+    for cc, pack in (("NO_WAIT", (3, 2, 256, 1)),
+                     ("TIMESTAMP", (7, 2, 256, 0))):
+        eng = Engine(Config(cc_alg=cc, fused_arbitrate=True, sub_ticks=K,
+                            **GRAPH_CFGS["ycsb"]), device=dev)
+        st = eng.run(5)
+        fused.reset_launches()
+        eng.run(10, st)
+        want = {pack: 10 * K, (2, 1, 256, 0): 10 * K, (2, 1, 64, 0): 10}
+        assert fused.LAUNCHES_BY_PACK == want, fused.LAUNCHES_BY_PACK
+        eng.run_compiled(1)
+        assert eng.graphs.launches_of(0, 1) == {
+            p: n // 10 for p, n in want.items()}
+
+
+@pytest.mark.parametrize("n", [8192, 81_920])
+def test_lock_optin_packs_match_plain_in_one_launch(dev, n):
+    # the ts_groups rank (ts, lane) by 1 key with dead lanes at BIG_TS, and
+    # the dense window's request sort (row, ts, lane | is_write << 23) by
+    # 2 keys with dead lanes keyed INT32_MAX
+    rng = np.random.default_rng(n)
+    live = rng.random(n) < 0.7
+    ts = np.where(live, rng.permutation(4 * n)[:n] + 1, 2**31 - 1)
+    lane = np.arange(n)
+    row = np.where(live, rng.integers(0, 4096, n), 2**31 - 1)
+    pay = lane | ((rng.random(n) < 0.5).astype(np.int64) << 23)
+    as_t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    groups = [as_t(ts), as_t(lane)]
+    window = [as_t(row), as_t(ts), as_t(pay)]
+    _check(groups, 1)
+    _check(window, 2)
+    _assert_one_device_launch(lambda: fused.fused_sort_scan(groups, 1))
+    _assert_one_device_launch(lambda: fused.fused_sort_scan(window, 2))
 
 
 def _rebase_arrays(dev, n, seed):

@@ -99,8 +99,10 @@ OUTSIDE = {
                             abort_attribution=True),
     # nor is the sharded CALVIN (its epoch log and forwarding exchange)
     "calvin_multi_partition": dict(cc_alg="CALVIN", part_cnt=2),
-    # TIMESTAMP's sub-ticked path (twopl.ts_groups) is not ported
-    "timestamp_sub_ticks": dict(cc_alg="TIMESTAMP", sub_ticks=2),
+    # TIMESTAMP's sub-ticked path runs, but not with its blocker plane
+    "timestamp_sub_ticks_depgraph": dict(cc_alg="TIMESTAMP", sub_ticks=2,
+                                         depgraph=True,
+                                         abort_attribution=True),
     # OCC's depgraph victim plane is not ported
     "occ_depgraph": dict(cc_alg="OCC", depgraph=True,
                          abort_attribution=True),
@@ -114,10 +116,18 @@ OUTSIDE = {
     # TPC-C and PPS are ported on one shard only
     "pps": dict(workload="PPS", part_cnt=2),
     "tpcc": dict(workload="TPCC", part_cnt=2),
-    "read_committed": dict(isolation_level="READ_COMMITTED"),
+    # every isolation level runs, but only in NORMAL mode
+    "read_committed_nocc": dict(isolation_level="READ_COMMITTED",
+                                mode="NOCC"),
     "nocc_mode": dict(mode="NOCC"),
-    "sub_ticks": dict(sub_ticks=2),
-    "dense_lock_state": dict(dense_lock_state=True),
+    # the lock family's sub-rounds run, but not with their blocker plane
+    "sub_ticks_depgraph": dict(sub_ticks=2, depgraph=True,
+                               abort_attribution=True),
+    # the dense-row window runs on one shard only
+    "dense_lock_state_multi_partition": dict(dense_lock_state=True,
+                                             part_cnt=2),
+    # pipeline_exchange's single-shard leg runs; the split exchange not
+    "exchange_split": dict(exchange_split=True),
     "commit_after_access": dict(commit_after_access=True),
     "compact_auto": dict(compact_auto=True),
     "compact_lanes": dict(compact_lanes=24),
