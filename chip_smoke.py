@@ -16,8 +16,10 @@ Phases, each printing one line:
      fused_arbitrate) on CUDA: the [summary] line, commits per tick, tick
      time from CUDA events, peak memory, and 2 kernel launches per tick
      with no fallback; then a short torch.profiler trace of the same
-     ticks: 2 device launches of the kernel per tick, no cummax, and no
-     host sync (CUDA sync debug mode);
+     ticks, for times: 2 sort wrapper launches per traced tick, no
+     cummax, one tick captured into a CUDA graph (not replayed) whose
+     wrapper launches are the 2 and whose nodes count the tick's device
+     work exactly, and no host sync (CUDA sync debug mode);
   5. the same cell on the port's CPU path: summary and data equal to a
      CUDA run of the same length, and the write-count oracle;
   6. the tpcc cell (TPC-C at 128 warehouses, 16.74M rows, B=8192, NO_WAIT,
@@ -25,8 +27,10 @@ Phases, each printing one line:
      line, commits per tick, abort rate, tick time, the kernel's launches
      per tick by pack against the ticks that took the compacted or the
      full-width effect body, 0 fallbacks, TPC-C's conservation laws, a
-     traced window whose device launches of the kernel match the count,
-     and 1 host sync per tick (the effect step's compact/full choice);
+     traced window (for times) whose sort wrapper launches match the
+     plan for the effect bodies taken, a captured tick's launches and
+     graph nodes, and 1 host sync per tick (the effect step's
+     compact/full choice);
   7. every pack one tpcc tick sorts, captured from the tick, held
      bit-equal to the plain version and timed as in phase 3;
   8. the tpcc cell on the port's CPU path: summary, data and every table
@@ -134,19 +138,36 @@ Phases, each printing one line:
      rounds on headline_subticks over 50 ticks; the headline at
      READ_UNCOMMITTED and at NOLOCK over 50 ticks, CPU == CUDA and eager
      == replayed;
- 19. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
+ 19. commit after access (``commit_after_access``): on each of
+     headline_caa, headline_occ_caa, headline_maat_caa and tpcc_calvin_caa
+     and its flagless cell, from one pool, CAA_TICKS eager ticks timed
+     after the warm-up, the [summary] line, commits per tick, abort rate
+     and short latency side by side; the sort kernel's launches per tick
+     by pack (and the rebase kernel's) equal to the flagless cell's, 0
+     fallbacks; the increment oracle, and TPC-C's conservation laws on
+     tpcc_calvin_caa; on the flag's engine one trace (torch.cummax: 7 + 1
+     per chain pass on headline_maat_caa, 0 on the others), the sort
+     wrapper's launches per traced tick and a captured tick's, the host
+     syncs of an eager tick (0 on YCSB but the loop's flag reads, 1 on
+     tpcc), 12 ticks eager == replayed tick by tick, CPU == CUDA after 20
+     ticks (txn slots included); then CPU == CUDA with the flag on the
+     headline under WAIT_DIE, TIMESTAMP and MVCC and on pps under NO_WAIT
+     and MAAT (CAA_CPU_OTHERS);
+ 20. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
      pps, pps_wait_die, headline_timestamp, tpcc_timestamp, headline_mvcc,
      tpcc_mvcc, headline_calvin, tpcc_calvin, pps_calvin, headline_occ,
      tpcc_occ, pps_occ, headline_maat, tpcc_maat, pps_maat,
-     headline_subticks, headline_timestamp_subticks, pps_wait_die_dense
-     and headline_read_committed cells: 300
+     headline_subticks, headline_timestamp_subticks, pps_wait_die_dense,
+     headline_read_committed, headline_caa, headline_occ_caa,
+     headline_maat_caa and tpcc_calvin_caa cells: 300
      ticks eager and 300 replayed from the same initial state give equal
      summaries, data, tables, CC state (wts, rts) and effect bodies; a
      replayed tick makes 0 host syncs (sync debug mode "error");
      the launches by pack captured per tick are those of a tick that takes
      the full-width effect body (a captured tick runs it whatever the
-     reference's choice, see workloads/base.py), and a traced window of
-     replays shows them; the eager and the graph tick ms (6 windows of 50 ticks, CUDA events) beside the
+     reference's choice, see workloads/base.py), one more tick captured
+     (not replayed) holds them and counts its graph nodes, and a traced
+     window of replays gives the device times; the eager and the graph tick ms (6 windows of 50 ticks, CUDA events) beside the
      card's name and power limit, every window, the replay windows once
      more after the trace, the SM clock nvidia-smi samples while the
      replays run, and the peak memory of both; the packs only a captured tick sorts (the full-width
@@ -235,7 +256,8 @@ GRAPH_CELLS = ("headline", "tpcc", "pps", "pps_wait_die",
                "headline_occ", "tpcc_occ", "pps_occ", "headline_maat",
                "tpcc_maat", "pps_maat", "headline_subticks",
                "headline_timestamp_subticks", "pps_wait_die_dense",
-               "headline_read_committed")
+               "headline_read_committed", "headline_caa", "headline_occ_caa",
+               "headline_maat_caa", "tpcc_calvin_caa")
 GRAPH_TICKS = 300
 #: the packs a headline tick sorts, as (columns, keys, lanes, shift)
 PACK_NAMES = {
@@ -631,10 +653,11 @@ def loop_passes(eng) -> int:
                                   eng.device).item())
 
 
-def trace_ticks(name, eng, tick, expect_sort):
+def trace_ticks(name, eng, tick):
     """A torch.profiler trace of TRACE_TICKS calls of `tick`
-    (``profile_tick.trace_kernels``, `expect_sort` passed on), the device
-    loop's passes of each traced tick read after it.  The tick's
+    (``profile_tick.trace_kernels``), for times only: no launch count is
+    held by it, since a trace can lose or gain device kernels.  The device
+    loop's passes of each traced tick are read after it.  The tick's
     torch.cummax calls (the trace's host ``aten::_cummax_helper`` ops of
     the recorded step, one per call and per device launch) must be MAAT's counted scan
     sites (MAAT_CUMMAX, with the traced passes) on a MAAT cell and 0 on
@@ -652,7 +675,7 @@ def trace_ticks(name, eng, tick, expect_sort):
         tick()
         per_pass.append(loop_passes(eng) - p0)
 
-    per = breakdown(trace_kernels(traced, TRACE_TICKS, expect_sort, host),
+    per = breakdown(trace_kernels(traced, TRACE_TICKS, None, host),
                     TRACE_TICKS)
     per["cummax_calls"] = host.get("aten::_cummax_helper", 0) / TRACE_TICKS
     passes = sum(per_pass[-TRACE_TICKS:]) / TRACE_TICKS
@@ -687,29 +710,66 @@ def loop_syncs(eng, tick, n_ticks, want_other, other_files):
     return syncs, passes, sites
 
 
+def captured_tick(name, eng, state):
+    """One tick as ``run_compiled`` runs it, captured into a CUDA graph that
+    is not replayed, so `state` does not move: the sort wrapper's launches
+    by pack inside the capture, each one kernel node of the graph (as
+    ``measure_pack`` holds for every pack), must be those ``graph_packs``
+    plans for a replayed tick.  Returns the graph's nodes by type
+    (``profile_tick.graph_nodes``), a tick's device work counted exactly,
+    where a torch.profiler trace can lose or gain launches.  Restores the
+    launch counters the capture moves."""
+    from deneva_tpu_torch.ops import device_loop, fused, rebase
+    from deneva_tpu_torch.profile_tick import graph_nodes
+    saved = (fused.LAUNCHES, dict(fused.LAUNCHES_BY_PACK),
+             device_loop.LAUNCHES, dict(rebase.LAUNCHES))
+    try:
+        nodes = graph_nodes(lambda: eng.tick(state, compiled=True))
+        by_pack = {k: v - saved[1].get(k, 0)
+                   for k, v in fused.LAUNCHES_BY_PACK.items()
+                   if v != saved[1].get(k, 0)}
+    finally:
+        fused.LAUNCHES, fused.LAUNCHES_BY_PACK = saved[0], saved[1]
+        device_loop.LAUNCHES = saved[2]
+        rebase.LAUNCHES.clear()
+        rebase.LAUNCHES.update(saved[3])
+    want = graph_packs(eng)[2]
+    if by_pack != want:
+        raise AssertionError(f"{name}: a captured tick launches the sort "
+                             f"kernel {by_pack} by pack, want {want}")
+    say("trace", f"{name}: one captured tick: {sum(by_pack.values())} sort "
+        f"launches (wrapper count, one kernel node each), graph nodes "
+        f"{nodes}")
+    return nodes
+
+
 def phase_trace(eng, state, name="headline", per_tick=2):
-    """A torch.profiler trace of TRACE_TICKS ticks of a YCSB cell: the
-    kernel's device launches per tick (`per_tick`) and the torch.cummax
-    calls (``trace_ticks``); then the same ticks under the CUDA sync debug mode:
-    no host sync, but for one flag read per pass of the device loop.
-    Returns the state after them."""
-    box = [state]
+    """A torch.profiler trace of TRACE_TICKS ticks of a YCSB cell, for
+    times, and the torch.cummax calls (``trace_ticks``); the sort
+    wrapper's launches in each traced tick must be `per_tick`, and so
+    must those of one captured tick (``captured_tick``); then the same
+    ticks under the CUDA sync debug mode: no host sync, but for one flag
+    read per pass of the device loop.  Returns the state after them."""
+    from deneva_tpu_torch.ops import fused
+    box, per_call = [state], []
 
     def tick():
+        n0 = fused.LAUNCHES
         box[0] = eng.tick(box[0])
+        per_call.append(fused.LAUNCHES - n0)
 
-    per, passes = trace_ticks(name, eng, tick, per_tick * TRACE_TICKS)
+    per, passes = trace_ticks(name, eng, tick)
     say("trace", f"{TRACE_TICKS} {name} ticks (torch.profiler): "
         f"{per['kernel_launches']:.1f} device launches per tick, device "
         f"busy {per['device_busy_us']:.1f} us per tick, fused kernel "
-        f"{per['fused_sort_scan_launches']:g} launches per tick, "
-        f"torch.cummax {per['cummax_calls']:g} calls and "
-        f"{per['cummax_launches']:g} device kernels per tick ({passes:g} "
-        "loop passes per tick)")
-    if per["fused_sort_scan_launches"] != per_tick:
-        raise AssertionError(f"{per['fused_sort_scan_launches']} fused "
-                             "kernel launches per traced tick, expected "
-                             f"{per_tick}")
+        f"{per['fused_sort_scan_launches']:g} launches per tick (wrapper "
+        f"count {per_call[-1]}), torch.cummax {per['cummax_calls']:g} "
+        f"calls and {per['cummax_launches']:g} device kernels per tick "
+        f"({passes:g} loop passes per tick)")
+    if set(per_call) != {per_tick}:
+        raise AssertionError(f"sort wrapper launches per traced tick "
+                             f"{sorted(set(per_call))}, expected {per_tick}")
+    captured_tick(name, eng, box[0])
     syncs, passes, sites = loop_syncs(eng, tick, TRACE_TICKS, 0, ())
     say("trace", f"{TRACE_TICKS} {name} ticks (CUDA sync debug mode): "
         f"{syncs:g} host syncs per tick at {sites or 'no line'} "
@@ -861,7 +921,7 @@ def run_effect_cell(cells, name, Engine, timed_run, fused, dev, packs_fn,
         f"rows) generated and uploaded in {pool_s:.2f} s; tables "
         f"({mb:.1f} MB on the card) built in {tables_s:.2f} s")
     init = snapshot(state.tables)
-    names, per_compact, per_full = packs_fn(eng)
+    names = packs_fn(eng)[0]
     wl = eng.workload
     state = eng.run(WARMUP_TICKS, state)
     before = eng.summary(state)["txn_cnt"]
@@ -900,10 +960,7 @@ def run_effect_cell(cells, name, Engine, timed_run, fused, dev, packs_fn,
     for pack, cnt in sorted(by_pack.items()):
         say(name, f"  {names.get(pack, pack)} {pack}: {cnt} "
             f"launches, {cnt / ticks:g} per tick")
-    want = {}
-    for n_ticks, per_tick in ((c, per_compact), (f, per_full)):
-        for pack, k in per_tick.items() if n_ticks else ():
-            want[pack] = want.get(pack, 0) + k * n_ticks
+    want = planned_launches(eng, c, f)
     if c + f != ticks or by_pack != want:
         raise AssertionError(f"{name} launches by pack {by_pack} != {want} "
                              f"for {c} compact and {f} full ticks")
@@ -918,22 +975,30 @@ def run_effect_cell(cells, name, Engine, timed_run, fused, dev, packs_fn,
 
 
 def trace_cell(name, eng, state, fused, want_syncs, sync_files):
-    """A traced window of the cell's ticks: the kernel's device launches
-    per tick equal the wrapper's count over the same ticks; then the host
-    syncs of a tick (CUDA sync debug mode) must be `want_syncs`, all at
-    lines of the files `sync_files`, plus one flag read per pass of the
-    device loop (OCC, MAAT), and its torch.cummax calls those of
-    ``trace_ticks``.  Returns the packs of one more tick, captured, and the
-    trace's per-tick numbers; flushes the state."""
+    """A traced window of the cell's ticks, for times, and its torch.cummax
+    calls (``trace_ticks``); the sort wrapper's launches of the traced
+    ticks must be those ``graph_packs`` plans for the effect bodies they
+    took, and one captured tick's those of a replay (``captured_tick``);
+    then the host syncs of a tick (CUDA sync debug mode) must be
+    `want_syncs`, all at lines of the files `sync_files`, plus one flag
+    read per pass of the device loop (OCC, MAAT).  Returns the packs of
+    one more tick, captured, and the trace's per-tick numbers; flushes the
+    state."""
     box, per_call = [state], []
+    wl = eng.workload
 
     def tick():
         n0 = fused.LAUNCHES
         box[0] = eng.tick(box[0])
         per_call.append(fused.LAUNCHES - n0)
 
-    per, passes = trace_ticks(name, eng, tick,
-                              lambda: sum(per_call[-TRACE_TICKS:]))
+    b0 = wl.branch_ticks
+    per, passes = trace_ticks(name, eng, tick)
+    b1 = wl.branch_ticks
+    # the wrapper's launches of every traced call (warm-up and recorded
+    # steps) against the plan for the effect bodies they took
+    c, f = (b1[k] - b0[k] for k in ("compact", "full"))
+    want = sum(planned_launches(eng, c, f).values())
     counted = sum(per_call[-TRACE_TICKS:]) / TRACE_TICKS
     say("trace", f"{TRACE_TICKS} {name} ticks (torch.profiler): "
         f"{per['kernel_launches']:.1f} device launches per tick, device "
@@ -943,9 +1008,11 @@ def trace_cell(name, eng, state, fused, want_syncs, sync_files):
         f"{counted:g}), torch.cummax {per['cummax_calls']:g} calls and "
         f"{per['cummax_launches']:g} device kernels per tick ({passes:g} "
         "loop passes per tick)")
-    if per["fused_sort_scan_launches"] != counted:
-        raise AssertionError("traced kernel launches per tick != the "
-                             "wrapper's count")
+    if c + f != len(per_call) or sum(per_call) != want:
+        raise AssertionError(f"{name}: {sum(per_call)} sort wrapper launches "
+                             f"in {len(per_call)} traced ticks ({c} compact "
+                             f"and {f} full effect bodies), want {want}")
+    captured_tick(name, eng, box[0])
     syncs, passes, sites = loop_syncs(eng, tick, TRACE_TICKS, want_syncs,
                                       sync_files)
     say("trace", f"{TRACE_TICKS} {name} ticks (CUDA sync debug mode): "
@@ -2061,6 +2128,167 @@ def phase_lock_optins(cells, Engine, timed_run, fused, dev):
     return rows
 
 
+#: commit after access: the four cells, each beside its flagless cell
+CAA_CELLS = ("headline_caa", "headline_occ_caa", "headline_maat_caa",
+             "tpcc_calvin_caa")
+#: commit after access: timed eager ticks, and the CPU == CUDA checks with
+#: the flag on other plugins (cell, overrides, ticks: the *_CPU_TICKS
+#: lengths of their phases)
+CAA_TICKS = 50
+CAA_CPU_TICKS = 20
+CAA_CPU_OTHERS = (("headline", {"cc_alg": "WAIT_DIE"}, 20),
+                  ("headline", {"cc_alg": "TIMESTAMP"}, 20),
+                  ("headline", {"cc_alg": "MVCC"}, 20),
+                  ("pps", {}, PPS_CPU_TICKS),
+                  ("pps", {"cc_alg": "MAAT"}, 20))
+
+
+def caa_window(eng, state, timed_run, fused, rebase):
+    """WARMUP_TICKS eager ticks from `state`, then CAA_TICKS timed (CUDA
+    events): the sort kernel's launches by pack against ``graph_packs``'s
+    plan for the effect bodies taken, 0 fallbacks, the rebase kernel's
+    launches, the loop's passes, commits per tick, abort rate and the
+    short latency.  Returns the state and a record of the window."""
+    wl = eng.workload
+    state = eng.run(WARMUP_TICKS, state)
+    s0 = eng.summary(state)
+    fused.reset_fallbacks()
+    fused.reset_launches()
+    rebase.reset_launches()
+    b0, p0 = wl.branch_ticks, loop_passes(eng)
+    state, sec = timed_run(eng, CAA_TICKS, state)
+    b1, passes = wl.branch_ticks, loop_passes(eng) - p0
+    by_pack = dict(fused.LAUNCHES_BY_PACK)
+    c, f = (b1[k] - b0[k] for k in ("compact", "full"))
+    if eng.cfg.workload == "YCSB":
+        c = CAA_TICKS
+    want = planned_launches(eng, c, f)
+    if by_pack != want or fused.fallback_snapshot()["count"]:
+        raise AssertionError(f"{eng.cfg}: launches by pack {by_pack}, want "
+                             f"{want}; fallbacks {fused.fallback_snapshot()}")
+    s = eng.summary(state)
+    commits = s["txn_cnt"] - s0["txn_cnt"]
+    aborts = s["total_txn_abort_cnt"] - s0["total_txn_abort_cnt"]
+    if int(state.data.sum().item()) != s["write_cnt"] or not commits > 0:
+        raise AssertionError(f"{eng.cfg.cc_alg}: data.sum() != write_cnt or "
+                             "no commit")
+    lat = np.asarray(s["ccl_samples"])
+    return state, dict(s=s, by_pack=by_pack, rebase=dict(rebase.LAUNCHES),
+                       ms=sec * 1e3, passes=passes / CAA_TICKS,
+                       commits=commits / CAA_TICKS,
+                       abort_rate=aborts / max(aborts + commits, 1),
+                       lat=s["avg_latency_ticks_short"],
+                       lat_p50=float(np.percentile(lat, 50)),
+                       lat_p99=float(np.percentile(lat, 99)))
+
+
+def caa_cell(cells, name, Engine, timed_run, fused, rebase, dev):
+    """One commit-after-access cell and its flagless cell on one pool (see
+    ``caa_window``): the same sort launches by pack and rebase launches per
+    tick; the increment oracle, and TPC-C's conservation laws on
+    tpcc_calvin_caa; then, on the flag's engine, a trace (its torch.cummax
+    calls: 7 + 1 per chain pass on headline_maat_caa, 0 elsewhere), the
+    sort wrapper's launches per tick and a captured tick's, the host syncs
+    of an eager tick (the effect choice on tpcc, the loop's flag reads),
+    ``LO_STEP_TICKS`` ticks eager == replayed tick by tick, and CPU == CUDA
+    after CAA_CPU_TICKS ticks."""
+    from deneva_tpu_torch.workloads import tpcc
+    base = name.removesuffix("_caa")
+    a = Engine(cells.config(name), device=dev)
+    b = Engine(cells.config(base), pool=a.pool, device=dev)
+    recs = []
+    for eng in (b, a):
+        state = eng.init_state()
+        init = tpcc.checksums(state.tables) \
+            if eng.cfg.workload == "TPCC" else None
+        state, r = caa_window(eng, state, timed_run, fused, rebase)
+        if init is not None:
+            check_tpcc_conservation(tpcc, eng.cfg, init, state.tables,
+                                    r["s"])
+        print(eng.summary_line(state))
+        recs.append(r)
+    rb, ra = recs
+    if ra["by_pack"] != rb["by_pack"] or ra["rebase"] != rb["rebase"]:
+        raise AssertionError(f"{name}: sort launches {ra['by_pack']} and "
+                             f"rebase launches {ra['rebase']}, the flagless "
+                             f"cell's {rb['by_pack']} and {rb['rebase']}")
+    for r, label in ((rb, base), (ra, name)):
+        say("caa", f"{label}: {CAA_TICKS} eager ticks after {WARMUP_TICKS} "
+            f"{r['ms']:.4f} ms per tick (cuda events), commits_per_tick="
+            f"{r['commits']} abort_rate={r['abort_rate']:.6f} "
+            f"avg_latency_ticks_short={r['lat']:.6f} (ring p50 "
+            f"{r['lat_p50']:g}, p99 {r['lat_p99']:g}) loop passes per tick "
+            f"{r['passes']:g}; sort launches by pack {r['by_pack']}, 0 "
+            f"fallbacks; rebase launches {r['rebase']}")
+    say("caa", f"{name} against {base}: commits per tick x"
+        f"{ra['commits'] / rb['commits']:.4f}, abort rate "
+        f"{ra['abort_rate']:.6f} against {rb['abort_rate']:.6f}, short "
+        f"latency x{ra['lat'] / rb['lat']:.4f}")
+    del b
+    gc.collect()
+
+    box, per_call = [state], []
+
+    def tick():
+        n0 = fused.LAUNCHES
+        box[0] = a.tick(box[0])
+        per_call.append(fused.LAUNCHES - n0)
+
+    want_tick = sum(graph_packs(a)[1].values())
+    per, passes = trace_ticks(name, a, tick)
+    if set(per_call) != {want_tick}:
+        raise AssertionError(f"{name}: sort wrapper launches per traced tick "
+                             f"{sorted(set(per_call))}, want {want_tick}")
+    nodes = captured_tick(name, a, box[0])
+    want_syncs = 1 if a.cfg.workload != "YCSB" else 0
+    syncs, passes_s, sites = loop_syncs(
+        a, tick, TRACE_TICKS, want_syncs, ("base.py",) if want_syncs else ())
+    say("caa", f"{name}: one trace of {TRACE_TICKS} ticks: device busy "
+        f"{per['device_busy_us']:.1f} us per tick, "
+        f"{per['kernel_launches']:.1f} device launches, fused kernel "
+        f"{per['fused_sort_scan_launches']:g} traced (wrapper count "
+        f"{want_tick}), torch.cummax {per['cummax_calls']:g} calls "
+        f"({passes:g} loop passes per tick), eager idle "
+        f"{1 - per['device_busy_us'] / 1e3 / ra['ms']:.3f}; "
+        f"{nodes.get('kernel', 0)} kernel nodes in a captured tick; host "
+        f"syncs {syncs:g} per eager tick at {sites or 'no line'} "
+        f"({passes_s:g} loop passes per tick)")
+    a._flush_body(box[0])
+    del state, box
+    step_equal(name, a, LO_STEP_TICKS)
+    say("caa", f"{name}: {LO_STEP_TICKS} ticks from the start, eager == "
+        "replayed tick by tick (every tensor of the state)")
+    pool = a.pool
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    s, cpu, sc, gpu, sg = phase_cpu_equal(cells, name, Engine, dev,
+                                          CAA_CPU_TICKS, pool=pool)
+    same_state(f"{name} CUDA == CPU", gpu, sg, cpu, sc)
+    del cpu, sc, gpu, sg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_commit_after(cells, Engine, timed_run, fused, rebase, dev,
+                       pps_pool):
+    """Commit after access on the card (phase 19 of the module docstring):
+    ``caa_cell`` on each of CAA_CELLS, then CPU == CUDA with the flag on
+    under the other plugins (CAA_CPU_OTHERS), txn slots included."""
+    for name in CAA_CELLS:
+        caa_cell(cells, name, Engine, timed_run, fused, rebase, dev)
+    for cell, over, ticks in CAA_CPU_OTHERS:
+        s, cpu, sc, gpu, sg = phase_cpu_equal(
+            cells, cell, Engine, dev, ticks,
+            pool=pps_pool if cell == "pps" else None,
+            commit_after_access=True, **over)
+        same_state(f"{cell} {over} commit_after_access CUDA == CPU", gpu,
+                   sg, cpu, sc)
+        del cpu, sc, gpu, sg
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def graph_packs(eng):
     """The names of the packs the cell's tick sorts, by (columns, keys,
     lanes, shift), and the launches of each per tick on the eager path
@@ -2073,6 +2301,19 @@ def graph_packs(eng):
     packs_fn = tpcc_packs if eng.cfg.workload == "TPCC" else pps_packs
     names, compact, full = packs_fn(eng)
     return names, compact, full
+
+
+def planned_launches(eng, compact, full):
+    """The sort kernel's launches by pack that `compact` ticks taking the
+    compacted effect body and `full` ticks taking the full-width one make
+    (``graph_packs``); a YCSB tick has no effect body and counts as
+    compact."""
+    _, per_compact, per_full = graph_packs(eng)
+    want = {}
+    for n, per in ((compact, per_compact), (full, per_full)):
+        for pack, k in per.items() if n else ():
+            want[pack] = want.get(pack, 0) + k * n
+    return want
 
 
 def host_copy(eng, state):
@@ -2213,17 +2454,13 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
         box[0] = eng.advance(1, box[0], compiled=True)
 
     syncs, sites = host_syncs(replay, TRACE_TICKS, "error")
-    start = box[0].host_tick
-    per = breakdown(trace_kernels(
-        replay, TRACE_TICKS,
-        lambda: sum(eng.graphs.launches_of(box[0].host_tick - TRACE_TICKS,
-                                           TRACE_TICKS).values())),
-        TRACE_TICKS)
-    want_sort = sum(eng.graphs.launches_of(start, 1).values())
-    if syncs or per["fused_sort_scan_launches"] != want_sort:
+    if syncs:
         raise AssertionError(f"{name}: replayed tick: {syncs} host syncs at "
-                             f"{sites}; {per['fused_sort_scan_launches']} "
-                             f"fused launches traced, {want_sort} captured")
+                             f"{sites}")
+    # the trace for times; the launches of a replay are those its graph
+    # captured (held above), and one more captured tick's graph nodes
+    per = breakdown(trace_kernels(replay, TRACE_TICKS), TRACE_TICKS)
+    nodes = captured_tick(name, eng, box[0])
     # the inputs of every pack a captured tick sorts (the full-width body)
     packs = capture_packs(fused, lambda: eng.tick(box[0], compiled=True))
     eng._flush_body(box[0])
@@ -2251,7 +2488,8 @@ def phase_graph(cells, name, Engine, timed_run, fused, dev, gpu_line):
         f"{span(again_clocks)} MHz, nvidia-smi every 20 ms); eager windows "
         f"{fmt(eager_ms)} ms")
     say("graph", f"{name}: replayed tick: 0 host syncs (sync debug mode "
-        f"error), {per['kernel_launches']:.1f} device launches, device busy "
+        f"error), {nodes.get('kernel', 0)} kernel nodes in a captured tick, "
+        f"{per['kernel_launches']:.1f} device launches, device busy "
         f"{per['device_busy_us']:.1f} us, fused kernel "
         f"{per['fused_sort_scan_launches']:g} launches and "
         f"{per['fused_sort_scan_us']:.1f} us (torch.profiler, "
@@ -2367,6 +2605,8 @@ def main() -> int:
     reb_maat, maat_body = phase_maat(cells, Engine, timed_run, fused, rebase,
                                      dev, rows, names, by_pack, pps_pool)
     lock_rows = phase_lock_optins(cells, Engine, timed_run, fused, dev)
+    phase_commit_after(cells, Engine, timed_run, fused, rebase, dev,
+                       pps_pool)
 
     from deneva_tpu_torch.ops import device_loop
     gpu_line = phase_gpu()
@@ -2378,6 +2618,14 @@ def main() -> int:
                           gpu_line)
         # the set-condition kernel ran once per replayed pass (OCC, MAAT)
         loop["replayed"] += rec["passes"]
+        if name in CAA_CELLS:
+            # the flagless cell's packs (phase 19 holds the counts equal):
+            # no row of their own
+            known = set(rows) | {r["pack"] for r in occ.values()}
+            if set(rec["packs"]) - known:
+                raise AssertionError(f"{name}: a pack no other cell sorts: "
+                                     f"{set(rec['packs']) - known}")
+            continue
         if name in occ:
             # the validation sort is a row of its own, like CALVIN's lock
             # sort

@@ -14,8 +14,13 @@ and workers that run a txn once all its locks are granted.  Batched:
   to the FIFO grant of ``twopl.arbitrate(..., "CALVIN")``: a write grants
   only at the head of its row's live entries, a read only if no write
   precedes it, and nothing aborts (``never_aborts``);
-- a txn commits the tick after its last lock grants, so the commit order
-  walks the batch's conflict graph frontier by frontier.
+- a txn commits the tick after its last lock grants: the commit block
+  runs before that tick's access phase and frees its locks for it.  With
+  ``commit_after_access`` the commit block runs after the access block, so
+  a txn commits in the tick its last lock grants: it holds all its entries
+  through that tick's access phase and frees them at that tick's commit,
+  one tick sooner.  Either way the commit order walks the batch's
+  conflict graph frontier by frontier.
 
 PPS's reconnaissance deferral lives in the engine (``recon_defer`` in
 ``engine/scheduler.py``).  ``check_slice`` refuses the depgraph blocker

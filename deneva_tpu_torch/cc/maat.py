@@ -28,6 +28,11 @@ and six counters, warm-up gated: ``maat_case1_cnt`` and
   run and no writer pair exists), which is the reference's skip branch.
 - ``on_commit`` raises ``maat_lw`` / ``maat_lr`` to the commit ts, the
   final lower (find_bound), in place.
+
+With ``commit_after_access`` ``validate`` runs after the tick's access
+phase: the chain sort (key, finishing first, ts) sees finishers whose last
+access was granted in this tick (access tick ``t``), so the passes a tick
+runs change; the 66-pass bound stays the reference's.
 - ``on_ts_rebase`` shifts the six arrays: the rows by the rebase kernel's
   ring rule in place, the slots by plain ops.  The upper's rule is not the
   identity at a shift of 0 (an upper of 0 would become 1), so it applies

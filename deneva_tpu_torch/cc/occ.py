@@ -15,6 +15,14 @@ validation, concurrency_control/occ.cpp:116-294).
   WHILE node of the graph in a captured tick).
 - ``on_commit`` stamps the tick into ``occ_wcommit`` at committed writes.
 
+With ``commit_after_access`` the engine validates after the tick's access
+phase.  A writer can then commit (``occ_wcommit[k] = t``) in the tick a
+txn admitted at ``t`` reads ``k``; the history check's strict ``>`` does
+not abort that reader (``wcommit == start_tick``), in the reference as
+here (tests/test_torch_commit_after.py holds it with a hand-made pool).
+The fixed point runs after the access phase, in the eager host loop and
+in the captured graph's WHILE node alike.
+
 The reference picks its history-check gather by ``lax.cond`` (the
 compacted K-row or the full (B, R) gather); both give the same verdicts
 and no counter records the choice, so the port runs the full gather on

@@ -573,6 +573,48 @@ def test_graph_replay_matches_eager(dev, workload, cc):
     assert st.host_tick == 46
 
 
+@pytest.mark.parametrize("cc", ["NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC",
+                                "CALVIN", "OCC", "MAAT"])
+@pytest.mark.parametrize("workload", sorted(GRAPH_CFGS))
+def test_commit_after_access_cuda_matches_cpu_and_replay(dev, workload, cc):
+    # commit after access: CUDA == CPU after 40 eager ticks, 40 replayed
+    # ticks == the eager ones (the device loop's passes too), the flagless
+    # tick's sorts in a captured tick, and no host read in a replay
+    cfg = Config(cc_alg=cc, fused_arbitrate=True, commit_after_access=True,
+                 **GRAPH_CFGS[workload])
+    gpu = Engine(cfg, device=dev)
+    cpu = Engine(cfg, pool=gpu.pool, device="cpu")
+    site = {"OCC": "occ", "MAAT": "maat"}.get(cc)
+    device_loop.reset_passes()
+    sg, sc = gpu.run(40), cpu.run(40)
+    assert gpu.summary(sg) == cpu.summary(sc)
+    assert gpu.summary(sg)["txn_cnt"] > 0
+    assert torch.equal(sg.data.cpu(), sc.data)
+    for part in ("tables", "db"):
+        for k, v in getattr(sc, part).items():
+            assert torch.equal(getattr(sg, part)[k].cpu(), v), k
+    for f in sc.txn._fields:
+        assert torch.equal(getattr(sg.txn, f).cpu(), getattr(sc.txn, f)), f
+    if site:
+        eager = int(device_loop.passes(site, dev).item())
+        assert eager == int(device_loop.passes(site, "cpu"))
+    # the warm-up and capture run the loop too: count from the replays
+    st0 = gpu.advance(0, gpu.init_state(), compiled=True)
+    device_loop.reset_passes()
+    rep = gpu.run_compiled(40, st0)
+    _assert_same_run(gpu, sg, rep)
+    if site:
+        assert int(device_loop.passes(site, dev).item()) == eager
+    per_tick = sum(gpu.graphs.launches[0].values())
+    assert per_tick == {"ycsb": 2, "tpcc": 7, "pps": 3}[workload] \
+        + (cc == "MVCC") - (cc == "OCC")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gpu.advance(3, rep, compiled=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def _passes_per_tick(eng, state, n_ticks, compiled, site="occ"):
     """Advance n_ticks one at a time; the passes of the device loop at
     `site` (OCC's fixed point, MAAT's chain) in each, read from its

@@ -128,7 +128,8 @@ OUTSIDE = {
                                              part_cnt=2),
     # pipeline_exchange's single-shard leg runs; the split exchange not
     "exchange_split": dict(exchange_split=True),
-    "commit_after_access": dict(commit_after_access=True),
+    # commit after access runs, but not with an unported flag
+    "commit_after_access": dict(commit_after_access=True, logging=True),
     "compact_auto": dict(compact_auto=True),
     "compact_lanes": dict(compact_lanes=24),
     "abort_attribution": dict(abort_attribution=True),
@@ -145,6 +146,23 @@ def test_config_outside_the_slice_raises(case):
                  query_pool_size=16, **OUTSIDE[case])
     with pytest.raises(NotImplementedError, match="outside the ported slice"):
         Engine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("case", sorted(OUTSIDE))
+def test_config_outside_the_slice_raises_with_commit_after_access(case):
+    # commit_after_access admits none of the refused configs
+    cfg = Config(batch_size=8, synth_table_size=64, req_per_query=2,
+                 query_pool_size=16,
+                 **{**OUTSIDE[case], "commit_after_access": True})
+    with pytest.raises(NotImplementedError, match="outside the ported slice"):
+        Engine(cfg, device="cpu")
+
+
+def test_commit_after_access_alone_is_admitted():
+    eng = Engine(Config(batch_size=8, synth_table_size=64, req_per_query=2,
+                        query_pool_size=16, commit_after_access=True),
+                 device="cpu")
+    assert eng.summary(eng.run(5))["measured_ticks"] == 5
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

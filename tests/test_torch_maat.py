@@ -322,6 +322,22 @@ def test_single_key_writers_serialize():
     assert s["maat_chain_overflow_cnt"] == 0
 
 
+@pytest.mark.parametrize("caa", [False, True],
+                         ids=["commit_first", "commit_after_access"])
+def test_duplicate_key_txns_terminate_and_commit(caa):
+    # tests/test_parity.py:270 under MAAT: a txn touching one row twice
+    # never conflicts with itself, and the commit chain ends; in either
+    # order of the tick's commit and access blocks
+    keys = np.array([[5, 5], [9, 9], [5, 9], [7, 8]], np.int32)
+    kw = dict(cc_alg="MAAT", batch_size=4, synth_table_size=64,
+              req_per_query=2, query_pool_size=4, warmup_ticks=0,
+              commit_after_access=caa)
+    eng, st_ = next(steps(kw, _pool(keys, np.ones_like(keys, bool)), [10]))
+    s = eng.summary(st_)
+    assert s["txn_cnt"] > 0
+    assert int(st_.data.sum()) == s["write_cnt"]
+
+
 def test_oracle_under_contention():
     # tests/test_maat.py:test_oracle_and_better_than_nowait_commit_rate
     # at window 1: the increment oracle holds
