@@ -59,7 +59,7 @@ Phases, each printing one line:
      with both times and the plain version's device time, and the
      tpcc_timestamp cell as phase 6 (1 host sync per tick, the effect
      branch: the restock chain is in closed form), then the histogram of
-     its deepest restock chain per tick over 300 more ticks (read on the
+     its deepest restock chain per tick over 150 more ticks (read on the
      host by this script, outside the timed windows); every T/O pack
      captured from a tick, held bit-equal to the plain version and timed,
      its bound counting each column at its own width; then CPU == CUDA
@@ -133,7 +133,7 @@ Phases, each printing one line:
      device kernel per call); 12 ticks eager == replayed tick by tick
      (every tensor of the state); CPU == CUDA after 20 ticks (summary,
      [summary] line, data, tables, CC arrays and txn slots); then
-     dense_lock_state == the sorted join on one pool for 20 + 300 ticks on
+     dense_lock_state == the sorted join on one pool for 20 + 150 ticks on
      the headline and on pps_wait_die; pipeline_exchange == the in-order
      rounds on headline_subticks over 50 ticks; the headline at
      READ_UNCOMMITTED and at NOLOCK over 50 ticks, CPU == CUDA and eager
@@ -153,13 +153,35 @@ Phases, each printing one line:
      ticks (txn slots included); then CPU == CUDA with the flag on the
      headline under WAIT_DIE, TIMESTAMP and MVCC and on pps under NO_WAIT
      and MAAT (CAA_CPU_OTHERS);
+ 21. live-entry compaction (``compact_auto``), run after phase 19 and
+     before phase 20: on each of headline_compact, tpcc_compact,
+     headline_mvcc_compact and headline_maat_compact and its flagless cell,
+     from one pool, CAA_TICKS eager ticks timed after the warm-up, the
+     [summary] line, commits per tick, abort rate, compact_overflow_cnt and
+     live_entry_cnt per tick side by side; the sort kernel's launches per
+     tick by pack: the flagless cell's sorts at the live width K plus the
+     compaction pack (and the expansion pack on the access path), 0
+     fallbacks, the same rebase launches; the increment oracle, and
+     TPC-C's conservation laws on tpcc_compact; on the flag's engine one
+     trace (torch.cummax: 7 + 1 per chain pass on headline_maat_compact, 0
+     on the others), the sort wrapper's launches per traced tick and a
+     captured tick's, the host syncs of an eager tick (the flagless
+     cell's), every pack the flagless cell does not sort, taken from a
+     live tick, held bit-equal to the plain version and timed as a row of
+     its own, 12 ticks eager == replayed tick by tick, CPU == CUDA after 20
+     ticks (txn slots included); then CPU == CUDA on the headline under
+     WAIT_DIE and TIMESTAMP and on headline_occ and pps with
+     ``compact_auto``, on tpcc_calvin with ``compact_lanes`` = 135,168 (half
+     its B*R: CALVIN's auto bucket is the identity), and on the headline
+     with ``compact_lanes`` = 8,192, which must spill (CP_CPU_OTHERS);
  20. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
      pps, pps_wait_die, headline_timestamp, tpcc_timestamp, headline_mvcc,
      tpcc_mvcc, headline_calvin, tpcc_calvin, pps_calvin, headline_occ,
      tpcc_occ, pps_occ, headline_maat, tpcc_maat, pps_maat,
      headline_subticks, headline_timestamp_subticks, pps_wait_die_dense,
      headline_read_committed, headline_caa, headline_occ_caa,
-     headline_maat_caa and tpcc_calvin_caa cells: 300
+     headline_maat_caa, tpcc_calvin_caa, headline_compact, tpcc_compact,
+     headline_mvcc_compact and headline_maat_compact cells: 300
      ticks eager and 300 replayed from the same initial state give equal
      summaries, data, tables, CC state (wts, rts) and effect bodies; a
      replayed tick makes 0 host syncs (sync debug mode "error");
@@ -179,7 +201,8 @@ Phases, each printing one line:
 Then one JSON line of per-kernel numbers (one entry per pack of the sort
 kernel, MAAT's six among them, one for CALVIN's lock sort on tpcc_calvin,
 one for each OCC cell's validation sort, one for each pack of the lock
-opt-in cells' access phase, one per use of the rebase kernel
+opt-in cells' access phase and for each pack a compaction cell sorts
+that its flagless cell does not, one per use of the rebase kernel
 (T/O's plain rule, MVCC's and MAAT's ring rule) at the main path's shift
 of 0, with its numbers at 2^30 under ``rebase_tick``, and one for the
 WHILE node, whose launches are the captures of its set-condition kernel
@@ -209,7 +232,8 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 67e12
 
-HEADLINE_TICKS = 300
+#: timed eager ticks of the phases before the graph phase (3 windows)
+HEADLINE_TICKS = 150
 WINDOW_TICKS = 50
 WARMUP_TICKS = 20
 CPU_TICKS = 60
@@ -218,9 +242,9 @@ MAIN_N = 8192 * 10           # B * R lanes of the headline cell
 #: two between 2 and 8 tiles of 1024 records (6 tiles: 3 merge levels)
 UNIT_WIDTHS = (1, 2, 7, 64, 96, 128, 130, 6007)
 TRACE_TICKS = 10
-TPCC_TICKS = 300
+TPCC_TICKS = 150
 TPCC_CPU_TICKS = 40
-PPS_TICKS = 300
+PPS_TICKS = 150
 PPS_CPU_TICKS = 40
 #: ticks of the CPU == CUDA checks under WAIT_DIE, by cell
 WD_CPU_TICKS = {"pps_wait_die": 40, "headline": 20, "tpcc": 20}
@@ -248,7 +272,7 @@ MAAT_ARRAYS = ("maat_lr", "maat_lw", "maat_lower", "maat_upper", "maat_gw",
 OC_CHAIN = 40
 #: OCC and MAAT cells: ticks whose loop passes are held equal one by one,
 #: eager against replayed
-OC_PASS_TICKS = 100
+OC_PASS_TICKS = 50
 #: cells of the graph phase, and its ticks on each path
 GRAPH_CELLS = ("headline", "tpcc", "pps", "pps_wait_die",
                "headline_timestamp", "tpcc_timestamp", "headline_mvcc",
@@ -257,7 +281,9 @@ GRAPH_CELLS = ("headline", "tpcc", "pps", "pps_wait_die",
                "tpcc_maat", "pps_maat", "headline_subticks",
                "headline_timestamp_subticks", "pps_wait_die_dense",
                "headline_read_committed", "headline_caa", "headline_occ_caa",
-               "headline_maat_caa", "tpcc_calvin_caa")
+               "headline_maat_caa", "tpcc_calvin_caa", "headline_compact",
+               "tpcc_compact", "headline_mvcc_compact",
+               "headline_maat_compact")
 GRAPH_TICKS = 300
 #: the packs a headline tick sorts, as (columns, keys, lanes, shift)
 PACK_NAMES = {
@@ -267,36 +293,47 @@ PACK_NAMES = {
 
 
 def access_packs(eng, prefix):
-    """The CC plugin's own sorts in a tick of `eng` at its B*R lanes, by
-    (columns, keys, lanes, shift), with their names, and the launches of
-    each per tick: 2PL's lock sort (keykind, ts, payload) by 2 keys with
-    the row shift, or the T/O and MVCC decision sort (key, ts, is_write,
-    held, req, w_abort, lane) by 2 keys; both are followed by the
-    unpermute, 2 columns by 1 key at the same width.  CALVIN's FIFO lock
-    sort is 2PL's pack.  MVCC's commit adds
-    its version insert (key, BIG_TS - ts, ts, committed write) by 2 keys.
-    OCC sorts once, to validate: (key, ts, is_write, txn) by 2 keys, with
-    no unpermute (its access grants every request and sorts nothing).
-    MAAT sorts twice, to validate: its chain sort (key, finishing first,
-    ts, is_write, access tick, txn) and its squeeze sort (key, access
-    tick, ts, lane), both by 3 keys.  The lock family's opt-ins: with
-    ``sub_ticks`` K, K sub-rounds of the lock sort (T/O: the decision
-    sort) and its unpermute, and the (ts, lane) rank of ``ts_groups`` at
-    B lanes; with ``dense_lock_state``, the window's (row, ts, payload)
-    request sort by 2 keys and its unpermute at B*W lanes; under NOLOCK
-    no sort at all."""
+    """The CC plugin's own sorts in a tick of `eng`, by (columns, keys,
+    lanes, shift), with their names, and the launches of each per tick:
+    2PL's lock sort (keykind, ts, payload) by 2 keys with the row shift,
+    or the T/O and MVCC decision sort (key, ts, is_write, held, req,
+    w_abort, lane) by 2 keys; both are followed by the unpermute, 2
+    columns by 1 key at the same width.  CALVIN's FIFO lock sort is 2PL's
+    pack.  MVCC's commit adds its version insert (key, BIG_TS - ts, ts,
+    committed write) by 2 keys at B*R lanes.  OCC sorts once, to
+    validate: (key, ts, is_write, txn) by 2 keys, with no unpermute (its
+    access grants every request and sorts nothing).  MAAT sorts twice, to
+    validate: its chain sort (key, finishing first, ts, is_write, access
+    tick, txn) and its squeeze sort (key, access tick, ts, lane), both by
+    3 keys.  These sorts run at the live width K of
+    ``Config.compact_width`` (B*R unless ``compact_auto`` or
+    ``compact_lanes`` makes it smaller); at K < B*R one full-width sort by
+    1 key builds the compacted view first (the access path's class rank
+    with the entry view and the plugin's per-lane inputs: 8 columns, 10
+    under TIMESTAMP, 11 under MVCC; OCC's 5, MAAT's 7), and on the access
+    path one more, 4 columns by 1 key, expands the decisions.  The lock
+    family's opt-ins bypass compaction: with ``sub_ticks`` K, K sub-rounds
+    of the lock sort (T/O: the decision sort) and its unpermute at B*R,
+    and the (ts, lane) rank of ``ts_groups`` at B lanes; with
+    ``dense_lock_state``, the window's (row, ts, payload) request sort by
+    2 keys and its unpermute at B*W lanes; under NOLOCK no sort at
+    all."""
     cfg = eng.cfg
     B = cfg.batch_size
     N = B * eng.pool.max_req
-    if eng.plugin.name == "OCC":
-        pack = (4, 2, N, 0)
-        return {pack: f"{prefix} OCC validation sort"}, {pack: 1}
-    if eng.plugin.name == "MAAT":
-        chain, squeeze = (6, 3, N, 0), (4, 3, N, 0)
-        return ({chain: f"{prefix} MAAT chain sort",
-                 squeeze: f"{prefix} MAAT squeeze sort"},
-                {chain: 1, squeeze: 1})
-    lock_family = eng.plugin.name in ("NO_WAIT", "WAIT_DIE")
+    plugin = eng.plugin.name
+    if plugin in ("OCC", "MAAT"):
+        K = cfg.compact_width(N, B)
+        if plugin == "OCC":
+            names = {(4, 2, K, 0): f"{prefix} OCC validation sort"}
+        else:
+            names = {(6, 3, K, 0): f"{prefix} MAAT chain sort",
+                     (4, 3, K, 0): f"{prefix} MAAT squeeze sort"}
+        if K < N:
+            names[(5 if plugin == "OCC" else 7, 1, N, 0)] = \
+                f"{prefix} {plugin} validation compaction"
+        return names, {p: 1 for p in names}
+    lock_family = plugin in ("NO_WAIT", "WAIT_DIE")
     locking = cfg.isolation_level in ("SERIALIZABLE", "READ_COMMITTED")
     if lock_family and cfg.isolation_level == "NOLOCK":
         return {}, {}
@@ -308,27 +345,31 @@ def access_packs(eng, prefix):
         return ({sort: f"{prefix} dense window request sort",
                  unperm: f"{prefix} dense window unpermute"},
                 {sort: 1, unperm: 1})
-    if eng.plugin.name in ("TIMESTAMP", "MVCC"):
-        pack, name = (7, 2, N, 0), "T/O and MVCC decision sort"
-    else:
-        pack, name = (3, 2, N, 1), "lock sort"
-    K = cfg.sub_ticks if (eng.plugin.name == "TIMESTAMP"
-                          or (lock_family and locking)) else 1
-    if K > 1:
-        # K sub-rounds of one sort and one unpermute, and the ts_groups
+    sub = cfg.sub_ticks if (plugin == "TIMESTAMP"
+                            or (lock_family and locking)) else 1
+    if sub > 1:
+        # sub sub-rounds of one sort and one unpermute, and the ts_groups
         # rank of the B slots
+        pack = (7, 2, N, 0) if plugin == "TIMESTAMP" else (3, 2, N, 1)
+        name = "T/O decision sort" if plugin == "TIMESTAMP" else "lock sort"
         groups = (2, 1, B, 0)
-        name = name.replace("T/O and MVCC", "T/O")
         return ({pack: f"{prefix} sub-round {name}",
                  (2, 1, N, 0): f"{prefix} sub-round unpermute",
                  groups: f"{prefix} ts_groups rank"},
-                {pack: K, (2, 1, N, 0): K, groups: 1})
-    names = {pack: f"{prefix} {name}", (2, 1, N, 0): f"{prefix} unpermute"}
-    every = {pack: 1, (2, 1, N, 0): 1}
-    if eng.plugin.name == "MVCC":
+                {pack: sub, (2, 1, N, 0): sub, groups: 1})
+    K = cfg.compact_width(N, B, request_all=eng.plugin.request_all)
+    if plugin in ("TIMESTAMP", "MVCC"):
+        pack, name = (7, 2, K, 0), "T/O and MVCC decision sort"
+    else:
+        pack, name = (3, 2, K, 1), "lock sort"
+    names = {pack: f"{prefix} {name}", (2, 1, K, 0): f"{prefix} unpermute"}
+    if K < N:
+        extras = {"TIMESTAMP": 2, "MVCC": 3}.get(plugin, 0)
+        names[(8 + extras, 1, N, 0)] = f"{prefix} access compaction"
+        names[(4, 1, N, 0)] = f"{prefix} access expansion"
+    if plugin == "MVCC":
         names[(4, 2, N, 0)] = f"{prefix} MVCC version insert"
-        every[(4, 2, N, 0)] = 1
-    return names, every
+    return names, {p: 1 for p in names}
 
 
 def tpcc_packs(eng):
@@ -1025,9 +1066,10 @@ def trace_cell(name, eng, state, fused, want_syncs, sync_files):
 
 
 def phase_tpcc(cells, Engine, timed_run, fused, dev):
-    """The tpcc cell at full scale on the card: build times, 300 ticks in
-    windows, launches per tick by pack against the branch counts, the
-    conservation laws, a traced window, and the captured packs."""
+    """The tpcc cell at full scale on the card: build times, TPCC_TICKS
+    ticks in windows, launches per tick by pack against the branch
+    counts, the conservation laws, a traced window, and the captured
+    packs."""
     from deneva_tpu_torch.workloads import tpcc
     eng, state, init, rec = run_effect_cell(
         cells, "tpcc", Engine, timed_run, fused, dev, tpcc_packs,
@@ -1067,7 +1109,7 @@ def check_pps_conservation(pps, cfg, pool, amount0, state):
 
 
 def phase_pps(cells, Engine, timed_run, fused, dev):
-    """The pps cell on the card: build times, 300 ticks in windows,
+    """The pps cell on the card: build times, PPS_TICKS ticks in windows,
     launches per tick by pack against the branch counts, PART_AMOUNT
     conservation, a traced window, and the captured packs."""
     from deneva_tpu_torch.workloads import pps
@@ -1453,18 +1495,37 @@ def loop_step(eng, state):
     from deneva_tpu_torch.engine.state import STATUS_RUNNING
     txn = state.txn
     finishing = (txn.status == STATUS_RUNNING) & (txn.cursor >= txn.n_req)
-    step, _ = occ.make_step(txn, *occ.history_check(state.db, txn,
-                                                    finishing))
+    valid_acc, pass1 = occ.history_check(state.db, txn, finishing)
+    _, pass1, cols = occ.compact_live(eng.cfg, state.db, txn, valid_acc,
+                                      pass1)
+    step, _ = occ.make_step(txn.keys.shape[0], cols, pass1)
     while bool(step()):
         pass
     return step
 
 
-def measure_body_pass(name, step, label="occ"):
+def pass_bound(step, carry):
+    """The least time of one pass of a loop body on this card, by bytes:
+    every tensor its closure holds read once (the columns the pass reads)
+    and the carry it updates in place, the tensors named in `carry`,
+    written once, at PEAK_BYTES_PER_S.  Returns the bound in ms and the
+    bytes."""
+    held = {n: c.cell_contents for n, c in zip(step.__code__.co_freevars,
+                                               step.__closure__)}
+    tensors = {n: t for n, t in held.items() if isinstance(t, torch.Tensor)}
+    bytes_ = sum(t.nbytes for t in tensors.values()) \
+        + sum(tensors[n].nbytes for n in carry)
+    return bytes_ / PEAK_BYTES_PER_S * 1e3, bytes_
+
+
+def measure_body_pass(name, step, label="occ", carry=("valid", "conflict")):
     """One pass of a device loop's body on a live tick's entries (it has
     converged, so a pass changes nothing): CUDA events over 50 eager
     passes, and over a plain graph of 20 passes, with the graph's device
-    time and kernels per pass (torch.profiler)."""
+    time and kernels per pass (torch.profiler), and its byte bound
+    (``pass_bound``; `carry` names the tensors it writes: OCC's verdicts
+    and conflict flags, or MAAT's verdicts, bounds and pass count)."""
+    bound, bytes_ = pass_bound(step, carry)
     eager_ms = cuda_ms(step)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -1475,10 +1536,15 @@ def measure_body_pass(name, step, label="occ"):
     say(label, f"{name}: one pass of the loop's body {graph_ms:.4f} "
         f"ms in a graph ({busy_ms / 20 * 1e3:.1f} us on the device in "
         f"{kernels / 20:g} kernels, torch.profiler), {eager_ms:.4f} ms eager "
-        "(cuda events)")
+        f"(cuda events); bound {bound:.6f} ms ({bytes_} bytes)")
     del graph
     return dict(graph_ms=graph_ms, device_ms=busy_ms / 20,
-                kernels=kernels / 20, eager_ms=eager_ms)
+                kernels=kernels / 20, eager_ms=eager_ms, bound_ms=bound,
+                bound_bytes=bytes_)
+
+
+#: the carry of MAAT's chain pass (``cc/maat.py`` ``make_chain``)
+MAAT_CARRY = ("ok", "lo", "up", "passes")
 
 
 def measure_while(dev):
@@ -1819,7 +1885,7 @@ def phase_maat(cells, Engine, timed_run, fused, rebase, dev, rows, names,
                              "expected 1 per tick in ring mode")
     check_maat_counts("headline_maat", eng.summary(state))
     body["headline_maat"] = measure_body_pass(
-        "headline_maat", maat_chain_step(eng, state), "maat")
+        "headline_maat", maat_chain_step(eng, state), "maat", MAAT_CARRY)
     acc_names, _ = access_packs(eng, "headline")
     measure_new(capture_packs(fused, lambda: eng.tick(state)),
                 {**PACK_NAMES, **acc_names}, "headline_maat", hb)
@@ -1841,7 +1907,7 @@ def phase_maat(cells, Engine, timed_run, fused, rebase, dev, rows, names,
     packs, _ = trace_cell("tpcc_maat", eng, state, fused, 1, ("base.py",))
     measure_new(packs, rec["names"], "tpcc_maat", rec["by_pack"])
     body["tpcc_maat"] = measure_body_pass(
-        "tpcc_maat", maat_chain_step(eng, state), "maat")
+        "tpcc_maat", maat_chain_step(eng, state), "maat", MAAT_CARRY)
     del eng, state
 
     eng, state, amount0, rec = run_effect_cell(
@@ -2173,13 +2239,51 @@ def caa_window(eng, state, timed_run, fused, rebase):
         raise AssertionError(f"{eng.cfg.cc_alg}: data.sum() != write_cnt or "
                              "no commit")
     lat = np.asarray(s["ccl_samples"])
-    return state, dict(s=s, by_pack=by_pack, rebase=dict(rebase.LAUNCHES),
+    return state, dict(s=s, s0=s0, by_pack=by_pack,
+                       rebase=dict(rebase.LAUNCHES),
                        ms=sec * 1e3, passes=passes / CAA_TICKS,
                        commits=commits / CAA_TICKS,
                        abort_rate=aborts / max(aborts + commits, 1),
                        lat=s["avg_latency_ticks_short"],
                        lat_p50=float(np.percentile(lat, 50)),
                        lat_p99=float(np.percentile(lat, 99)))
+
+
+def trace_flag_cell(label, name, eng, state, fused, eager_ms):
+    """On an opt-in cell's engine `eng`, from `state`: one trace
+    (``trace_ticks``: its torch.cummax calls), the sort wrapper's launches
+    per traced tick and a captured tick's, each as ``graph_packs`` plans,
+    and the host syncs of an eager tick (the effect choice on TPC-C and
+    PPS, the loop's flag reads).  Returns a box holding the state after
+    those ticks, and the tick that advances it."""
+    box, per_call = [state], []
+
+    def tick():
+        n0 = fused.LAUNCHES
+        box[0] = eng.tick(box[0])
+        per_call.append(fused.LAUNCHES - n0)
+
+    want_tick = sum(graph_packs(eng)[1].values())
+    per, passes = trace_ticks(name, eng, tick)
+    if set(per_call) != {want_tick}:
+        raise AssertionError(f"{name}: sort wrapper launches per traced tick "
+                             f"{sorted(set(per_call))}, want {want_tick}")
+    nodes = captured_tick(name, eng, box[0])
+    want_syncs = 1 if eng.cfg.workload != "YCSB" else 0
+    syncs, passes_s, sites = loop_syncs(
+        eng, tick, TRACE_TICKS, want_syncs,
+        ("base.py",) if want_syncs else ())
+    say(label, f"{name}: one trace of {TRACE_TICKS} ticks: device busy "
+        f"{per['device_busy_us']:.1f} us per tick, "
+        f"{per['kernel_launches']:.1f} device launches, fused kernel "
+        f"{per['fused_sort_scan_launches']:g} traced (wrapper count "
+        f"{want_tick}), torch.cummax {per['cummax_calls']:g} calls "
+        f"({passes:g} loop passes per tick), eager idle "
+        f"{1 - per['device_busy_us'] / 1e3 / eager_ms:.3f}; "
+        f"{nodes.get('kernel', 0)} kernel nodes in a captured tick; host "
+        f"syncs {syncs:g} per eager tick at {sites or 'no line'} "
+        f"({passes_s:g} loop passes per tick)")
+    return box, tick
 
 
 def caa_cell(cells, name, Engine, timed_run, fused, rebase, dev):
@@ -2227,32 +2331,7 @@ def caa_cell(cells, name, Engine, timed_run, fused, rebase, dev):
     del b
     gc.collect()
 
-    box, per_call = [state], []
-
-    def tick():
-        n0 = fused.LAUNCHES
-        box[0] = a.tick(box[0])
-        per_call.append(fused.LAUNCHES - n0)
-
-    want_tick = sum(graph_packs(a)[1].values())
-    per, passes = trace_ticks(name, a, tick)
-    if set(per_call) != {want_tick}:
-        raise AssertionError(f"{name}: sort wrapper launches per traced tick "
-                             f"{sorted(set(per_call))}, want {want_tick}")
-    nodes = captured_tick(name, a, box[0])
-    want_syncs = 1 if a.cfg.workload != "YCSB" else 0
-    syncs, passes_s, sites = loop_syncs(
-        a, tick, TRACE_TICKS, want_syncs, ("base.py",) if want_syncs else ())
-    say("caa", f"{name}: one trace of {TRACE_TICKS} ticks: device busy "
-        f"{per['device_busy_us']:.1f} us per tick, "
-        f"{per['kernel_launches']:.1f} device launches, fused kernel "
-        f"{per['fused_sort_scan_launches']:g} traced (wrapper count "
-        f"{want_tick}), torch.cummax {per['cummax_calls']:g} calls "
-        f"({passes:g} loop passes per tick), eager idle "
-        f"{1 - per['device_busy_us'] / 1e3 / ra['ms']:.3f}; "
-        f"{nodes.get('kernel', 0)} kernel nodes in a captured tick; host "
-        f"syncs {syncs:g} per eager tick at {sites or 'no line'} "
-        f"({passes_s:g} loop passes per tick)")
+    box, _ = trace_flag_cell("caa", name, a, state, fused, ra["ms"])
     a._flush_body(box[0])
     del state, box
     step_equal(name, a, LO_STEP_TICKS)
@@ -2287,6 +2366,148 @@ def phase_commit_after(cells, Engine, timed_run, fused, rebase, dev,
         del cpu, sc, gpu, sg
         gc.collect()
         torch.cuda.empty_cache()
+
+
+#: live-entry compaction (phase 21): the four cells, each beside its
+#: flagless cell
+CP_CELLS = ("headline_compact", "tpcc_compact", "headline_mvcc_compact",
+            "headline_maat_compact")
+CP_CPU_TICKS = 20
+#: CPU == CUDA on cells the four do not cover (cell, overrides, ticks):
+#: CALVIN's auto bucket is the identity (it requests every access), so it
+#: takes half its B*R; 8,192 lanes (one per txn slot) spill
+CP_CPU_OTHERS = (("headline", {"cc_alg": "WAIT_DIE", "compact_auto": True},
+                  20),
+                 ("headline", {"cc_alg": "TIMESTAMP", "compact_auto": True},
+                  20),
+                 ("headline_occ", {"compact_auto": True}, 20),
+                 ("pps", {"compact_auto": True}, PPS_CPU_TICKS),
+                 ("tpcc_calvin", {"compact_lanes": 135168}, 20),
+                 ("headline", {"compact_lanes": 8192}, 20))
+
+
+def compact_cell(cells, name, Engine, timed_run, fused, rebase, dev, rows):
+    """One compaction cell and its flagless cell on one pool
+    (``caa_window``: launches by pack as planned, 0 fallbacks, the
+    increment oracle, and TPC-C's conservation laws on tpcc_compact): the
+    flagless cell's sorts a tick at K lanes plus the compaction pack (and
+    on the access path the expansion pack), the same rebase launches;
+    commits per tick, abort rate, ``compact_overflow_cnt`` and
+    ``live_entry_cnt`` per tick side by side; then, on the flag's engine,
+    a trace (torch.cummax: 7 + 1 per chain pass on headline_maat_compact,
+    0 elsewhere), the sort wrapper's launches per tick and a captured
+    tick's, the host syncs of an eager tick (as the flagless cell's: the
+    effect choice on tpcc, the loop's flag reads), every pack the flagless
+    cell does not sort, taken from a live tick, held bit-equal to the
+    plain version and timed as a row of its own (into `rows`, by cell and
+    pack), ``LO_STEP_TICKS`` ticks eager == replayed tick by tick, and
+    CPU == CUDA after CP_CPU_TICKS ticks."""
+    from deneva_tpu_torch.workloads import tpcc
+    base = name.removesuffix("_compact")
+    a = Engine(cells.config(name), device=dev)
+    b = Engine(cells.config(base), pool=a.pool, device=dev)
+    recs = []
+    for eng in (b, a):
+        state = eng.init_state()
+        init = tpcc.checksums(state.tables) \
+            if eng.cfg.workload == "TPCC" else None
+        state, r = caa_window(eng, state, timed_run, fused, rebase)
+        if init is not None:
+            check_tpcc_conservation(tpcc, eng.cfg, init, state.tables,
+                                    r["s"])
+        print(eng.summary_line(state))
+        recs.append(r)
+    rb, ra = recs
+    extra = 1 if a.plugin.name in LOOP_SITES else 2
+    per_a = sum(ra["by_pack"].values()) / CAA_TICKS
+    per_b = sum(rb["by_pack"].values()) / CAA_TICKS
+    if per_a != per_b + extra or ra["rebase"] != rb["rebase"]:
+        raise AssertionError(f"{name}: sort launches {ra['by_pack']} and "
+                             f"rebase launches {ra['rebase']}, the flagless "
+                             f"cell's {rb['by_pack']} and {rb['rebase']} "
+                             f"plus {extra} a tick")
+    N = a.cfg.batch_size * a.pool.max_req
+    K = a.cfg.compact_width(N, a.cfg.batch_size)
+    delta = lambda r, k: (r["s"].get(k, 0) - r["s0"].get(k, 0)) / CAA_TICKS
+    for r, label in ((rb, base), (ra, name)):
+        say("compact", f"{label}: {CAA_TICKS} eager ticks after "
+            f"{WARMUP_TICKS} {r['ms']:.4f} ms per tick (cuda events), "
+            f"commits_per_tick={r['commits']} abort_rate="
+            f"{r['abort_rate']:.6f} compact_overflow_cnt per tick "
+            f"{delta(r, 'compact_overflow_cnt'):g} live_entry_cnt per tick "
+            f"{delta(r, 'live_entry_cnt'):g} loop passes per tick "
+            f"{r['passes']:g}; sort launches by pack {r['by_pack']}, 0 "
+            f"fallbacks; rebase launches {r['rebase']}")
+    say("compact", f"{name} (K = {K} of {N} lanes) against {base}: eager "
+        f"tick x{ra['ms'] / rb['ms']:.4f}, commits per tick x"
+        f"{ra['commits'] / rb['commits']:.4f}, abort rate "
+        f"{ra['abort_rate']:.6f} against {rb['abort_rate']:.6f}; "
+        f"{per_a:g} sorts a tick against {per_b:g}")
+    flagless = set(graph_packs(b)[1])
+    del b
+    gc.collect()
+
+    box, tick = trace_flag_cell("compact", name, a, state, fused, ra["ms"])
+    names = graph_packs(a)[0]
+    body = None
+    if a.plugin.name == "MAAT":
+        # one chain pass at K lanes, as phase 17 times it at B*R
+        body = measure_body_pass(name, maat_chain_step(a, box[0]),
+                                 "compact", MAAT_CARRY)
+    packs = capture_packs(fused, tick)
+    a._flush_body(box[0])
+    for pack, cols in sorted(packs.items()):
+        if pack in flagless:
+            continue
+        # the pack's name less the workload's prefix, after the cell's
+        label = f"{name} {names[pack].split(' ', 1)[1]} (K = {K})"
+        r = measure_pack(fused, label, cols, pack[1], pack[3])
+        r.update(pack=pack, launches=ra["by_pack"][pack], replayed=0)
+        rows[(name, pack)] = dict(r, label=label)
+    del state, box
+    step_equal(name, a, LO_STEP_TICKS)
+    say("compact", f"{name}: {LO_STEP_TICKS} ticks from the start, eager == "
+        "replayed tick by tick (every tensor of the state)")
+    pool = a.pool
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    s, cpu, sc, gpu, sg = phase_cpu_equal(cells, name, Engine, dev,
+                                          CP_CPU_TICKS, pool=pool)
+    same_state(f"{name} CUDA == CPU", gpu, sg, cpu, sc)
+    del cpu, sc, gpu, sg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return body
+
+
+def phase_compaction(cells, Engine, timed_run, fused, rebase, dev, pps_pool,
+                     rows):
+    """Live-entry compaction on the card (phase 21 of the module
+    docstring): ``compact_cell`` on each of CP_CELLS, then CPU == CUDA on
+    CP_CPU_OTHERS, txn slots included; the spilling case must spill.
+    Returns MAAT's chain pass at K, by cell."""
+    bodies = {}
+    for name in CP_CELLS:
+        body = compact_cell(cells, name, Engine, timed_run, fused, rebase,
+                            dev, rows)
+        if body is not None:
+            bodies[name] = body
+    for cell, over, ticks in CP_CPU_OTHERS:
+        s, cpu, sc, gpu, sg = phase_cpu_equal(
+            cells, cell, Engine, dev, ticks,
+            pool=pps_pool if cell == "pps" else None, **over)
+        same_state(f"{cell} {over} CUDA == CPU", gpu, sg, cpu, sc)
+        say("compact", f"{cell} {over}: compact_overflow_cnt="
+            f"{s['compact_overflow_cnt']} live_entry_cnt="
+            f"{s['live_entry_cnt']} after {ticks} ticks, CUDA == CPU")
+        if over.get("compact_lanes") == 8192 \
+                and not s["compact_overflow_cnt"] > 0:
+            raise AssertionError(f"{cell} {over}: no spill")
+        del cpu, sc, gpu, sg
+        gc.collect()
+        torch.cuda.empty_cache()
+    return bodies
 
 
 def graph_packs(eng):
@@ -2607,6 +2828,9 @@ def main() -> int:
     lock_rows = phase_lock_optins(cells, Engine, timed_run, fused, dev)
     phase_commit_after(cells, Engine, timed_run, fused, rebase, dev,
                        pps_pool)
+    # compaction's own packs are rows by cell, like the lock opt-ins'
+    maat_body.update(phase_compaction(cells, Engine, timed_run, fused,
+                                      rebase, dev, pps_pool, lock_rows))
 
     from deneva_tpu_torch.ops import device_loop
     gpu_line = phase_gpu()
@@ -2631,7 +2855,8 @@ def main() -> int:
             # sort
             occ[name]["replayed"] = rec["replayed"].pop(occ[name]["pack"],
                                                         0)
-        # so are the packs of the lock opt-in cells that phase 18 measured
+        # so are the packs of the lock opt-in cells that phase 18 measured,
+        # and the compaction cells' own packs (phase 21)
         own = {p for (cell, p) in lock_rows if cell == name}
         for p in own:
             lock_rows[(name, p)]["replayed"] = rec["replayed"].pop(p, 0)
@@ -2701,10 +2926,13 @@ def main() -> int:
         "set_condition_ms": loop["set_condition_ms"],
         "occ_body_pass_ms": loop["body"]["graph_ms"],
         "occ_body_pass_device_ms": loop["body"]["device_ms"],
+        "occ_body_pass_bound_ms": loop["body"]["bound_ms"],
         "maat_body_pass_ms": {k: v["graph_ms"]
                               for k, v in maat_body.items()},
         "maat_body_pass_device_ms": {k: v["device_ms"]
                                      for k, v in maat_body.items()},
+        "maat_body_pass_bound_ms": {k: v["bound_ms"]
+                                    for k, v in maat_body.items()},
     })
     for rec, what, replaces in (
             (reb, "wts+rts", "deneva_tpu/cc/timestamp.py:119"),

@@ -48,8 +48,14 @@ sorted txn column.  That is exact: those re-sorts tie only inside one
 txn's run (the reference's own precondition: ts is unique per live txn),
 and per-txn values are constant there.
 
-Out of the slice (``check_slice`` refuses their configs): live-entry
-compaction, the 2PC prepare window, the sharded group combine and the
+With ``compact_lanes`` or ``compact_auto`` the entry view is compacted
+to K lanes first (``entries``): cases 1/3 are unchanged, and the chain
+sort, ``pair_window``, every pass and the squeeze's sort and scans run
+at K, with the reference's spill rules (a finisher with a spilled lane
+votes no, a spilled runner's lane stalls every vote of the tick).
+
+Out of the slice (``check_slice`` refuses their configs): the 2PC
+prepare window, the sharded group combine and the
 sharded hooks (``remote_cache_probe``, ``commit_forward_entries``,
 ``home_commit_check``), the depgraph plane and abort attribution.
 """
@@ -60,6 +66,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from deneva_tpu_torch.cc import base as cc_base
 from deneva_tpu_torch.cc import occ
 from deneva_tpu_torch.cc.base import AccessDecision, CCPlugin
 from deneva_tpu_torch.cc.timestamp import raise_max
@@ -117,7 +124,8 @@ def flag(chain_needed, passes, changed):
 
 
 class Entries(NamedTuple):
-    """The granted accesses of live txns (the soft-lock sets), (B*R,)."""
+    """The granted accesses of live txns (the soft-lock sets): (B*R,), or
+    (K,) compacted."""
 
     key: torch.Tensor     # NULL_KEY where not a granted access of a live txn
     ts: torch.Tensor
@@ -131,7 +139,7 @@ class Chain(NamedTuple):
     """The validation before the squeeze: the chain's ``step`` and carry
     (``ok``, ``lower``, ``upper``, which hold the verdicts and bounds once
     ``run_while`` ends), the bounds after cases 1 and 3, their counters'
-    masks, and what the counters read of the chain sort."""
+    masks, what the counters read of the chain sort, and the db."""
 
     step: Callable
     ok: torch.Tensor
@@ -143,10 +151,21 @@ class Chain(NamedTuple):
     starts: torch.Tensor
     nfin_seg: torch.Tensor
     ent: Entries
+    db: dict              # with the compaction's occupancy counters
 
 
-def entries(cfg: Config, txn: TxnState, finishing) -> tuple:
-    """The entry view (``Entries``) and each txn's has-a-granted-write."""
+def entries(cfg: Config, db: dict, txn: TxnState, finishing) -> tuple:
+    """The entry view (``Entries``) at ``Config.compact_width`` lanes (the
+    identity view at default flags), with the occupancy counters folded
+    into db, each txn's has-a-granted-write, and the txns that may vote
+    yes: ``(db, ent, has_write, ok_allowed)``.
+
+    Compaction is one class in the original order (maat.py:245-270): a
+    finishing txn with a spilled lane votes no, and a spilled lane of a
+    running txn stalls every vote of the tick (a committer might owe that
+    unseen runner a squeeze push).  ``stall`` is a device bool.  The
+    2PC-prepared flag the reference compacts too is all false on one
+    shard (its ``prepared`` is None), so it is left out of the pack."""
     B, R = txn.keys.shape
     dev = finishing.device
     ridx = torch.arange(R, dtype=I32, device=dev)[None, :]
@@ -156,14 +175,26 @@ def entries(cfg: Config, txn: TxnState, finishing) -> tuple:
     # MaaT accesses never block: access r was granted at start_tick +
     # r // window; in-tick ties go by ts (maat.py:231-235)
     atick = txn.start_tick[:, None] + ridx // max(cfg.acquire_window, 1)
-    ent = Entries(
+    full = Entries(
         key=torch.where(ent_live, txn.keys.reshape(-1), NULL_KEY),
         ts=txn.ts.repeat_interleave(R),
         iw=txn.is_write.reshape(-1),
         atick=atick.reshape(-1),
         tx=torch.arange(B, dtype=I32, device=dev).repeat_interleave(R),
         fin=(finishing[:, None] & granted).reshape(-1))
-    return ent, (txn.is_write & granted).any(dim=1)
+    has_write = (txn.is_write & granted).any(dim=1)
+    K = cfg.compact_width(B * R, B)
+    view, cols = seg.compact_entries(ent_live, K, *full)
+    db = cc_base.note_compaction(db, view)
+    if view.identity:
+        return db, full, has_write, finishing
+    ovf_e = seg.overflow_mask(ent_live, K)
+    ovf_fin = (ovf_e & full.fin).reshape(B, R).any(dim=1)
+    stall = (ovf_e & ~full.fin).any()
+    # the dead tail of the K lanes carries dead entries' txns; the gathers
+    # through ``tx`` are clamped as the reference's ``txc`` (maat.py:270)
+    ent = Entries(*cols)._replace(tx=torch.clamp(cols[4], 0, B - 1))
+    return db, ent, has_write, finishing & ~ovf_fin & ~stall
 
 
 def pair_window(M: int, fin3, iw3, k3, t3, at3):
@@ -196,7 +227,7 @@ def make_chain(cfg: Config, db: dict, txn: TxnState, finishing) -> Chain:
     returns ``flag``."""
     dev = finishing.device
     M = max(int(cfg.maat_chain_window), 1)
-    ent, has_write = entries(cfg, txn, finishing)
+    db, ent, has_write, ok_allowed = entries(cfg, db, txn, finishing)
 
     # cases 1/3: the lower above the greatest committed write / read ts
     # seen at access time (maat.cpp:46-48,68-70)
@@ -225,7 +256,7 @@ def make_chain(cfg: Config, db: dict, txn: TxnState, finishing) -> Chain:
     rd3 = fin3 & ~iw3
 
     # the carry, at fixed addresses; `passes` counts this tick's passes
-    ok = finishing.clone()
+    ok = ok_allowed.clone()
     lo = static_lower.clone()
     up = upper0.clone()
     passes = torch.zeros((), dtype=I32, device=dev)
@@ -264,7 +295,7 @@ def make_chain(cfg: Config, db: dict, txn: TxnState, finishing) -> Chain:
             push_e = torch.maximum(push_e, push_d.amax(dim=0))
         upper_new = txn_min(tx3, cap_e, upper0)
         lower_new = txn_max(tx3, push_e, static_lower)
-        new_ok = finishing & (lower_new < upper_new)
+        new_ok = ok_allowed & (lower_new < upper_new)
         changed = ((new_ok != ok).any() | (lower_new != lo).any()
                    | (upper_new != up).any())
         ok.copy_(new_ok)
@@ -275,7 +306,7 @@ def make_chain(cfg: Config, db: dict, txn: TxnState, finishing) -> Chain:
 
     return Chain(step=step, ok=ok, lower=lo, upper=up,
                  static_lower=static_lower, case1=case1, case3=case3,
-                 starts=st3, nfin_seg=nfin_seg, ent=ent)
+                 starts=st3, nfin_seg=nfin_seg, ent=ent, db=db)
 
 
 class Maat(CCPlugin):
@@ -342,7 +373,7 @@ class Maat(CCPlugin):
         M = max(int(cfg.maat_chain_window), 1)
         ch = make_chain(cfg, db, txn, finishing)
         device_loop.run_while(ch.step, LOOP_SITE, finishing.device)
-        ok, lower, upper = ch.ok, ch.lower, ch.upper
+        ok, lower, upper, db = ch.ok, ch.lower, ch.upper, ch.db
 
         measuring = tick >= cfg.warmup_ticks
         cnt = lambda m: torch.where(measuring,
@@ -357,7 +388,7 @@ class Maat(CCPlugin):
             db["maat_chain_overflow_cnt"].add_(torch.where(
                 measuring, (ch.starts & (ch.nfin_seg > M)).sum(dtype=I32),
                 0))
-        lower_arr, upper_arr = squeeze(db, ch.ent, R, finishing, ok, lower,
+        lower_arr, upper_arr = squeeze(db, ch.ent, finishing, ok, lower,
                                        upper)
         return ok, {**db, "maat_lower": lower_arr, "maat_upper": upper_arr}
 
@@ -376,7 +407,7 @@ class Maat(CCPlugin):
         return db
 
 
-def squeeze(db: dict, ent: Entries, R: int, finishing, ok, lower, upper):
+def squeeze(db: dict, ent: Entries, finishing, ok, lower, upper):
     """The directional neighbour squeeze (maat.py:598-706): the
     validators' self-adjustments (the upper ducks under running writers
     they saw, the lower jumps above running readers), then the pushes
@@ -391,7 +422,7 @@ def squeeze(db: dict, ent: Entries, R: int, finishing, ok, lower, upper):
     l2 = l2.to(I64)
     w2 = ent.iw.index_select(0, l2)
     f2 = ent.fin.index_select(0, l2)
-    tx2 = l2 // R
+    tx2 = ent.tx.index_select(0, l2).to(I64)
     ok2 = ok.index_select(0, tx2)
     lo2 = lo_cur.index_select(0, tx2)
     up2 = up_cur.index_select(0, tx2)

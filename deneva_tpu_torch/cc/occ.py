@@ -23,12 +23,15 @@ here (tests/test_torch_commit_after.py holds it with a hand-made pool).
 The fixed point runs after the access phase, in the eager host loop and
 in the captured graph's WHILE node alike.
 
-The reference picks its history-check gather by ``lax.cond`` (the
-compacted K-row or the full (B, R) gather); both give the same verdicts
-and no counter records the choice, so the port runs the full gather on
-every tick.  Its depgraph victim plane, the ``net_delay_ticks`` prepare
-marks and the sharded ``group_and`` branch are outside the slice
-(``check_slice`` refuses their configs).
+With ``compact_lanes`` or ``compact_auto`` the active-writer check runs
+at the compacted live width K (``compact_live``): the validation sort
+and every pass of the fixed point see K lanes, and a txn with a spilled
+lane votes no.  The reference picks its history-check gather by
+``lax.cond`` (the compacted K-row or the full (B, R) gather); both give
+the same verdicts and no counter records the choice, so the port runs
+the full gather on every tick.  Its depgraph victim plane, the
+``net_delay_ticks`` prepare marks and the sharded ``group_and`` branch
+are outside the slice (``check_slice`` refuses their configs).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deneva_tpu_torch.cc import base as cc_base
 from deneva_tpu_torch.cc.base import AccessDecision, CCPlugin
 from deneva_tpu_torch.cc.timestamp import raise_max
 from deneva_tpu_torch.config import Config
@@ -76,7 +80,8 @@ class Occ(CCPlugin):
     def validate(self, cfg: Config, db: dict, txn: TxnState, finishing,
                  tick):
         valid_acc, pass1 = history_check(db, txn, finishing)
-        step, valid = make_step(txn, valid_acc, pass1)
+        db, pass1, cols = compact_live(cfg, db, txn, valid_acc, pass1)
+        step, valid = make_step(txn.keys.shape[0], cols, pass1)
         device_loop.run_while(step, LOOP_SITE, pass1.device)
         measuring = tick >= cfg.warmup_ticks
         for key, failed in (("occ_hist_abort_cnt", finishing & ~pass1),
@@ -113,26 +118,47 @@ def history_check(db: dict, txn: TxnState, finishing):
     return valid_acc, finishing & ~conf.any(dim=1)
 
 
-def make_step(txn: TxnState, valid_acc, pass1):
+def compact_live(cfg: Config, db: dict, txn: TxnState, valid_acc, pass1):
+    """The live lanes of the active-writer check (the accesses of the
+    finishers that passed the history check) as columns ``(key, ts, iw,
+    tx)``, compacted to ``Config.compact_width`` lanes (maat.py's and the
+    reference's ``compact_entries``; the identity view at default flags).
+    Every lane here is retryable, so there is no class ranking: a txn with
+    a spilled lane votes no, like a failed validator leaving the active
+    set.  Returns ``(db, pass1, cols)``, db with the occupancy counters
+    and pass1 less the spilled txns."""
+    B, R = txn.keys.shape
+    ent_live = (valid_acc & pass1[:, None]).reshape(-1)
+    key = torch.where(ent_live, txn.keys.reshape(-1), NULL_KEY)
+    ts = txn.ts.repeat_interleave(R)
+    tx = torch.arange(B, dtype=I32, device=pass1.device).repeat_interleave(R)
+    K = cfg.compact_width(B * R, B)
+    view, cols = seg.compact_entries(ent_live, K, key, ts,
+                                     txn.is_write.reshape(-1), tx)
+    db = cc_base.note_compaction(db, view)
+    if not view.identity:
+        spilled = seg.overflow_mask(ent_live, K).reshape(B, R).any(dim=1)
+        pass1 = pass1 & ~spilled
+    return db, pass1, cols
+
+
+def make_step(B: int, cols, pass1):
     """The same-tick active-writer check (occ.cpp:185-233): txns that
     passed the history check, serialized by ts; a failed validator leaves
     the active set, so only finishers that validate block later ones.
     The unique fixed point of "valid = pass1 & no earlier valid writer
     conflicts" is iterated to convergence (pass n settles every conflict
-    chain of depth <= n).  One sort of the live entries by (key, ts) gives
-    the row segments; each pass moves ``valid`` into sorted order by a
-    gather through the sort's ``tx`` column (the reference re-sorts on the
-    same keys), so no pass sorts.  Returns ``(step, valid)``: one pass,
-    for ``device_loop.run_while``, and the carry it updates in place,
-    which holds the verdicts once the loop ends."""
-    B, R = txn.keys.shape
+    chain of depth <= n).  One sort of the live columns ``cols``
+    (``compact_live``'s, at its width) by (key, ts) gives the row
+    segments; each pass moves ``valid`` into sorted order by a gather
+    through the sort's ``tx`` column (the reference re-sorts on the same
+    keys), so no pass sorts.  Returns ``(step, valid)``: one pass, for
+    ``device_loop.run_while``, and the carry it updates in place, which
+    holds the verdicts once the loop ends."""
     dev = pass1.device
-    ent_live = (valid_acc & pass1[:, None]).reshape(-1)
-    key = torch.where(ent_live, txn.keys.reshape(-1), NULL_KEY)
-    ts = txn.ts.repeat_interleave(R)
-    tx = torch.arange(B, dtype=I32, device=dev).repeat_interleave(R)
-    (skey, _, s_iw, s_tx), starts, sidx = seg.sort_pack_scan(
-        (key, ts, txn.is_write.reshape(-1), tx), num_keys=2)
+    (skey, _, s_iw, s_tx), starts, sidx = seg.sort_pack_scan(cols,
+                                                             num_keys=2)
+    n = skey.shape[0]
     live = skey != NULL_KEY
     live_w = live & s_iw
     # a txn never conflicts with itself: read the blocking count at the
@@ -143,12 +169,12 @@ def make_step(txn: TxnState, valid_acc, pass1):
     # the carry: valid and the per-txn conflict flags, at fixed addresses.
     # A lane that finds no conflict scatters to one of B scratch cells
     # past the txns', spread by lane (the reference drops it at cell B; on
-    # the card B*R atomics on one cell would serialize)
+    # the card n atomics on one cell would serialize)
     valid = pass1.clone()
     conflict = torch.zeros(2 * B, dtype=I32, device=dev)
-    miss = B + torch.arange(B * R, dtype=I64, device=dev) % B
+    miss = B + torch.arange(n, dtype=I64, device=dev) % B
     hit = torch.where(live, s_tx, miss)
-    ones = torch.ones_like(key)
+    ones = torch.ones_like(skey)
 
     def step():
         blocking = live_w & valid.index_select(0, s_tx)

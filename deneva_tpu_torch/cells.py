@@ -88,6 +88,25 @@ nothing cut:
 - ``tpcc_calvin_caa``: ``tpcc_calvin``: CALVIN's FIFO chains on the 128
   warehouse rows, and the JAX package's claim that the hot-chain latency
   halves.
+
+Live-entry compaction (``compact_auto``): the CC sorts run at a static
+live width K = B * (ceil(R/2) + acquire_window), rounded up to a multiple
+of 256, in place of the padded B*R, behind one full-width sort that builds
+the compacted view (and, on the access path, one that expands the
+decisions).  Each of these four is its cell as it stands with the flag on,
+nothing cut:
+
+- ``headline_compact``: ``headline`` (NO_WAIT), K = 8,192 x (5 + 1) =
+  49,152 of 81,920 lanes: the JAX package's claim of about 2x on the
+  sort-bound ticks (``deneva_tpu/ops/segment.py``), on the lock sort.
+- ``tpcc_compact``: ``tpcc`` (NO_WAIT), R = 33: K = 8,192 x 18 = 147,456
+  of 270,336 lanes, the widest sort of the repo.
+- ``headline_mvcc_compact``: ``headline_mvcc``, K = 49,152: the widest
+  compaction pack (11 columns: the entry view and MVCC's 3 per-lane
+  inputs).
+- ``headline_maat_compact``: ``headline_maat``, K = 49,152: validation
+  compaction, the chain, its passes and the squeeze's scans at K, and the
+  tick-wide stall of a spilled runner.
 """
 
 from __future__ import annotations
@@ -135,6 +154,8 @@ CELLS["headline_read_committed"] = dict(CELLS["headline"],
                                         isolation_level="READ_COMMITTED")
 for _name in ("headline", "headline_occ", "headline_maat", "tpcc_calvin"):
     CELLS[f"{_name}_caa"] = dict(CELLS[_name], commit_after_access=True)
+for _name in ("headline", "tpcc", "headline_mvcc", "headline_maat"):
+    CELLS[f"{_name}_compact"] = dict(CELLS[_name], compact_auto=True)
 
 
 def config(name: str, **overrides) -> Config:

@@ -21,6 +21,7 @@ YCSB, TPC-C or PPS under NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN, OCC
 or MAAT, single shard, NORMAL mode, commit before or after access, at any
 isolation level (NO_WAIT and WAIT_DIE read it), with ``sub_ticks``
 (NO_WAIT, WAIT_DIE, TIMESTAMP), ``dense_lock_state`` (NO_WAIT, WAIT_DIE),
+live-entry compaction (``compact_auto``, ``compact_lanes``),
 ``fused_arbitrate`` and ``pipeline_exchange`` on or off and every other
 opt-in flag off.  ``check_slice`` refuses
 anything else; its single-shard rule also covers the JAX engine's ``part_cnt == 1``
@@ -113,9 +114,11 @@ STAT_KEYS_F32 = (
 LAT_SAMPLES = 1 << 14
 
 
-#: opt-in flags the slice admits: the fused kernel, and the single-shard
-#: leg of ``pipeline_exchange`` (whose values equal the in-order sub-rounds')
-ADMITTED_OPTINS = ("fused_arbitrate", "pipeline_exchange")
+#: opt-in flags the slice admits: the fused kernel, the single-shard leg
+#: of ``pipeline_exchange`` (whose values equal the in-order sub-rounds'),
+#: and live-entry compaction (``compact_auto``, ``compact_lanes``)
+ADMITTED_OPTINS = ("fused_arbitrate", "pipeline_exchange", "compact_auto",
+                   "compact_lanes")
 
 
 def check_slice(cfg: Config) -> None:
@@ -139,8 +142,9 @@ def check_slice(cfg: Config) -> None:
             "outside the ported slice (YCSB, TPC-C or PPS under NO_WAIT, "
             "WAIT_DIE, TIMESTAMP, MVCC, CALVIN, OCC or MAAT, single shard, "
             "NORMAL mode; commit_after_access, any isolation_level, "
-            "sub_ticks, dense_lock_state, fused_arbitrate and "
-            "pipeline_exchange, every other flag at its default): "
+            "sub_ticks, dense_lock_state, compact_auto, compact_lanes, "
+            "fused_arbitrate and pipeline_exchange, every other flag at "
+            "its default): "
             + ", ".join(bad))
 
 

@@ -321,16 +321,34 @@ def unpermute(perm: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Live-prefix compaction.  This slice carries the identity view only (the
-# default config: neither ``compact_lanes`` nor ``compact_auto``); the
-# compacted branch comes with the compaction slice.
+# Live-prefix compaction: run a sort chain at a static live width K, not at
+# the padded B*R (Config.compact_lanes / compact_auto).
+#
+#   1. ``compact_entries``: ONE 1-key sort by ``where(live, idx, n + idx)``
+#      (all distinct, so the order is fully determined) moves the live
+#      entries to a prefix in their original relative order; the payloads
+#      ride it and are sliced to K lanes.
+#   2. the caller's own sorts run at K lanes.  Compaction keeps the live
+#      entries' relative order and every downstream sort breaks ties by
+#      lane, so each segment sees the same live entries in the same order
+#      as the padded run: decisions are bit-equal whenever nothing spills.
+#   3. ``expand_entries``: ONE sort by the permutation puts the K-lane
+#      results back at their (n,) positions.
+#
+# Live entries ranked >= K are never dropped silently: ``overflow_mask``
+# marks them at full width, the callers force their txns to retry, and
+# the spill is counted in ``compact_overflow_cnt``.  The JAX package
+# claims about 2x on its sort-bound ticks; the building and expanding
+# sorts are full width, so whether it pays on the card is measured
+# (PERF.md), not assumed.
 # ---------------------------------------------------------------------------
 
 
 class CompactView(NamedTuple):
     """Geometry of one ``compact_entries`` call: static lane counts K
-    (``width``) and n, the full-width permutation (None for the identity
-    view), the live mask, and device scalars n_live and overflow."""
+    (``width``) and n, the full-width permutation (the original index of
+    each liveness-sorted slot; None for the identity view), the live mask
+    of the K lanes, and device scalars n_live and overflow."""
 
     width: int
     n: int
@@ -344,21 +362,58 @@ class CompactView(NamedTuple):
         return self.orig_sorted is None
 
 
+def as_i32(x: torch.Tensor) -> torch.Tensor:
+    """Booleans as int32 sort operands; other tensors as they are."""
+    return x.to(I32) if x.dtype == torch.bool else x
+
+
 def compact_entries(live: torch.Tensor, K: int, *payloads: torch.Tensor):
-    """Identity view for K >= n (payloads returned untouched, no sort)."""
+    """Sort the live entries to a dense prefix and slice to static width K:
+    ``(view, compacted_payloads)``.  K >= n is the identity view
+    (payloads returned untouched, no sort).  Booleans ride as int32 and
+    convert back.  ``n_live`` and ``overflow`` stay on the device."""
     n = live.shape[0]
-    if K < n:
-        raise NotImplementedError(
-            "live-entry compaction (K < B*R) is not ported yet")
-    zero = torch.zeros((), dtype=I32, device=live.device)
-    view = CompactView(width=n, n=n, orig_sorted=None, live=live,
-                       n_live=live.sum(dtype=I32), overflow=zero)
-    return view, payloads
+    n_live = live.sum(dtype=I32)
+    if K >= n:
+        zero = torch.zeros((), dtype=I32, device=live.device)
+        view = CompactView(width=n, n=n, orig_sorted=None, live=live,
+                           n_live=n_live, overflow=zero)
+        return view, payloads
+    idx = _iota(live)
+    keyrank = torch.where(live, idx, n + idx)
+    srt = sort_pack((keyrank,) + tuple(as_i32(p) for p in payloads),
+                    num_keys=1, is_stable=False)
+    outs = tuple(o[:K] == 1 if p.dtype == torch.bool else o[:K]
+                 for o, p in zip(srt[1:], payloads))
+    view = CompactView(
+        width=K, n=n,
+        orig_sorted=srt[0] % n,      # keyrank mod n: the original index
+        live=srt[0][:K] < n,
+        n_live=n_live,
+        overflow=torch.clamp(n_live - K, min=0))
+    return view, outs
 
 
 def expand_entries(view: CompactView, *vals: torch.Tensor, fill=0):
-    """Identity views pass through untouched."""
-    if not view.identity:
-        raise NotImplementedError(
-            "live-entry compaction (K < B*R) is not ported yet")
-    return vals
+    """Put K-lane results back at their original (n,) positions with ONE
+    sort by the view's permutation (``unpermute_many``); positions that
+    did not ride the K lanes get ``fill`` (False for booleans).  Identity
+    views pass through untouched."""
+    if view.identity:
+        return vals
+    pad = view.n - view.width
+    padded = tuple(torch.cat([v, torch.full((pad,), fill, dtype=v.dtype,
+                                            device=v.device)])
+                   for v in vals)
+    return unpermute_many(view.orig_sorted, *padded)
+
+
+def overflow_mask(live: torch.Tensor, K: int) -> torch.Tensor:
+    """Full-width mask of the live entries ranked beyond K, the ones a
+    compacted kernel never saw: compaction keeps the live order, so they
+    are the live entries whose exclusive live rank (an int32 cumsum, no
+    cummax) is >= K."""
+    if K >= live.shape[0]:
+        return torch.zeros_like(live)
+    m = live.to(I32)
+    return live & (torch.cumsum(m, 0, dtype=I32) - m >= K)

@@ -57,10 +57,11 @@ def _passes(cfg):
     return int(device_loop.passes(site, "cpu")) if site else 0
 
 
-def run_both_orders(kw, n_ticks=TICKS, pool=None):
+def run_both_orders(kw, n_ticks=TICKS, pool=None, min_commits=1):
     """The JAX engine's run, and the port's run and run_compiled, on one
     pool: all three held equal (with the device loop's passes, eager
-    against compiled).  Returns the port's summary, engine and state."""
+    against compiled), and at least ``min_commits`` commits.  Returns the
+    port's summary, engine and state."""
     cfg = TConfig(**kw)
     if pool is None:
         pool = wl_registry.get(cfg).gen_pool(cfg)
@@ -98,7 +99,7 @@ def run_both_orders(kw, n_ticks=TICKS, pool=None):
                                       err_msg=k)
     _assert_same(te, ts, tc, cs)
     assert te.workload.counts() == tc.workload.counts()
-    assert b["txn_cnt"] > 0
+    assert b["txn_cnt"] >= min_commits
     return b, te, ts
 
 

@@ -615,6 +615,50 @@ def test_commit_after_access_cuda_matches_cpu_and_replay(dev, workload, cc):
         torch.cuda.set_sync_debug_mode("default")
 
 
+@pytest.mark.parametrize("cc", ["NO_WAIT", "WAIT_DIE", "TIMESTAMP", "MVCC",
+                                "CALVIN", "OCC", "MAAT"])
+@pytest.mark.parametrize("workload", sorted(GRAPH_CFGS))
+def test_compaction_cuda_matches_cpu_and_replay(dev, workload, cc):
+    # live-entry compaction: CUDA == CPU after 40 eager ticks (the
+    # occupancy counters too), 40 replayed ticks == the eager ones, the
+    # flagless tick's sorts at K plus the compaction pack (and the
+    # expansion pack on the access path) in a captured tick, and no host
+    # read in a replay.  YCSB's B*R = 256 takes 160 lanes (compact_auto is
+    # the identity at that width), CALVIN's auto bucket is the identity
+    # (it requests every access), so it takes 4,096 lanes on TPC-C and PPS
+    if workload == "ycsb":
+        over = dict(compact_lanes=160)
+    elif cc == "CALVIN":
+        over = dict(compact_lanes=4096)
+    else:
+        over = dict(compact_auto=True)
+    kw = dict(cc_alg=cc, fused_arbitrate=True, **GRAPH_CFGS[workload])
+    gpu = Engine(Config(**kw, **over), device=dev)
+    cpu = Engine(Config(**kw, **over), pool=gpu.pool, device="cpu")
+    sg, sc = gpu.run(40), cpu.run(40)
+    s = gpu.summary(sg)
+    assert s == cpu.summary(sc)
+    assert s["txn_cnt"] > 0 and s["live_entry_cnt"] > 0
+    assert torch.equal(sg.data.cpu(), sc.data)
+    for part in ("tables", "db"):
+        for k, v in getattr(sc, part).items():
+            assert torch.equal(getattr(sg, part)[k].cpu(), v), k
+    for f in sc.txn._fields:
+        assert torch.equal(getattr(sg.txn, f).cpu(), getattr(sc.txn, f)), f
+    st0 = gpu.advance(0, gpu.init_state(), compiled=True)
+    rep = gpu.run_compiled(40, st0)
+    _assert_same_run(gpu, sg, rep)
+    per_tick = sum(gpu.graphs.launches[0].values())
+    assert per_tick == {"ycsb": 2, "tpcc": 7, "pps": 3}[workload] \
+        + (cc == "MVCC") - (cc == "OCC") + (1 if cc in ("OCC", "MAAT")
+                                            else 2)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gpu.advance(3, rep, compiled=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def _passes_per_tick(eng, state, n_ticks, compiled, site="occ"):
     """Advance n_ticks one at a time; the passes of the device loop at
     `site` (OCC's fixed point, MAAT's chain) in each, read from its

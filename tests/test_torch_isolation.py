@@ -130,8 +130,10 @@ OUTSIDE = {
     "exchange_split": dict(exchange_split=True),
     # commit after access runs, but not with an unported flag
     "commit_after_access": dict(commit_after_access=True, logging=True),
-    "compact_auto": dict(compact_auto=True),
-    "compact_lanes": dict(compact_lanes=24),
+    # live-entry compaction runs, but not with an unported flag: the
+    # compact_spill reason restamp, and the trace row's compaction deltas
+    "compact_auto": dict(compact_auto=True, abort_attribution=True),
+    "compact_lanes": dict(compact_lanes=24, trace_ticks=8),
     "abort_attribution": dict(abort_attribution=True),
     "trace_ticks": dict(trace_ticks=8),
     "logging": dict(logging=True),

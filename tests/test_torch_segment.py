@@ -218,8 +218,13 @@ def test_identity_compaction_view():
     _eq(tp, jp)
     (te,) = tseg.expand_entries(tv, tp)
     _eq(te, jp)
-    with pytest.raises(NotImplementedError):
-        tseg.compact_entries(T(live), 3, T(vals))
+    # K < n compacts (tests/test_torch_compaction.py holds it in full)
+    tv, (tp,) = tseg.compact_entries(T(live), 2, T(vals))
+    jv, (jp,) = jseg.compact_entries(J(live), 2, J(vals))
+    assert not tv.identity and tv.width == 2
+    _eq(tv.orig_sorted, jv.orig_sorted)
+    _eq(tv.overflow, jv.overflow)
+    _eq(tp, jp)
 
 
 # the hand cases of tests/test_segment_ops.py
