@@ -174,6 +174,24 @@ Phases, each printing one line:
      ``compact_auto``, on tpcc_calvin with ``compact_lanes`` = 135,168 (half
      its B*R: CALVIN's auto bucket is the identity), and on the headline
      with ``compact_lanes`` = 8,192, which must spill (CP_CPU_OTHERS);
+ 22. the sharded engine (``parallel/sharded.py``), run after phase 21 and
+     before phase 20: on headline_sharded4 (four nodes of the headline's
+     size on the card, NO_WAIT, fused_arbitrate), SH_TICKS eager ticks
+     and SH_TICKS graph replays from one initial state equal (summary,
+     [summary] line, every node's data and counters, txn slots) with the
+     write-count oracle; then 3 windows of SH_WINDOW eager ticks, with the
+     sort kernel's launches by pack (per node and tick: routing A and B,
+     3 columns by 2 keys at B*R lanes, the lock sort and the unpermute at
+     the owner's N*C + B*R lanes: 16 a tick), and 3 windows of replays,
+     each cell's tick ms the median of its windows; commits per tick,
+     abort rate, remote entries and route-overflow aborts per tick, peak
+     memory; one trace of eager ticks and one of replays (times, idle
+     share, 0 torch.cummax), the host syncs of an eager tick (0), a
+     captured tick's sort launches and graph nodes; each of the four
+     packs, taken from a live tick, held bit-equal to the plain version
+     and timed as a row of its own; then CPU == CUDA on sharded2_small,
+     sharded8_small and sharded2_small with a starved exchange
+     (SH_CPU_CELLS), every node's counters and txn slots included;
  20. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
      pps, pps_wait_die, headline_timestamp, tpcc_timestamp, headline_mvcc,
      tpcc_mvcc, headline_calvin, tpcc_calvin, pps_calvin, headline_occ,
@@ -181,20 +199,20 @@ Phases, each printing one line:
      headline_subticks, headline_timestamp_subticks, pps_wait_die_dense,
      headline_read_committed, headline_caa, headline_occ_caa,
      headline_maat_caa, tpcc_calvin_caa, headline_compact, tpcc_compact,
-     headline_mvcc_compact and headline_maat_compact cells: 300
-     ticks eager and 300 replayed from the same initial state give equal
+     headline_mvcc_compact and headline_maat_compact cells: GRAPH_TICKS
+     ticks eager and GRAPH_TICKS replayed from the same initial state give equal
      summaries, data, tables, CC state (wts, rts) and effect bodies; a
      replayed tick makes 0 host syncs (sync debug mode "error");
      the launches by pack captured per tick are those of a tick that takes
      the full-width effect body (a captured tick runs it whatever the
      reference's choice, see workloads/base.py), one more tick captured
      (not replayed) holds them and counts its graph nodes, and a traced
-     window of replays gives the device times; the eager and the graph tick ms (6 windows of 50 ticks, CUDA events) beside the
+     window of replays gives the device times; the eager and the graph tick ms (3 windows of 50 ticks, CUDA events) beside the
      card's name and power limit, every window, the replay windows once
      more after the trace, the SM clock nvidia-smi samples while the
      replays run, and the peak memory of both; the packs only a captured tick sorts (the full-width
      effect body) held bit-equal to the plain version and timed; on the
-     OCC and MAAT cells, the loop's passes of the 300 replayed ticks
+     OCC and MAAT cells, the loop's passes of the replayed ticks
      equal the eager ticks', and OC_PASS_TICKS ticks eager and replayed
      from the start run equal passes tick by tick (their histogram
      printed).
@@ -217,6 +235,7 @@ nonzero; without a CUDA device it exits nonzero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -284,7 +303,7 @@ GRAPH_CELLS = ("headline", "tpcc", "pps", "pps_wait_die",
                "headline_maat_caa", "tpcc_calvin_caa", "headline_compact",
                "tpcc_compact", "headline_mvcc_compact",
                "headline_maat_compact")
-GRAPH_TICKS = 300
+GRAPH_TICKS = 150
 #: the packs a headline tick sorts, as (columns, keys, lanes, shift)
 PACK_NAMES = {
     (3, 2, MAIN_N, 1): "headline lock sort",
@@ -1525,10 +1544,11 @@ def measure_body_pass(name, step, label="occ", carry=("valid", "conflict")):
     time and kernels per pass (torch.profiler), and its byte bound
     (``pass_bound``; `carry` names the tensors it writes: OCC's verdicts
     and conflict flags, or MAAT's verdicts, bounds and pass count)."""
+    from deneva_tpu_torch.engine.graph import no_collection_in_capture
     bound, bytes_ = pass_bound(step, carry)
     eager_ms = cuda_ms(step)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with no_collection_in_capture(), torch.cuda.graph(graph):
         for _ in range(20):
             step()
     graph_ms = cuda_ms(graph.replay, reps=20) / 20
@@ -1556,6 +1576,7 @@ def measure_while(dev):
     set-condition kernel and the node's next iteration), and the host loop that reads the flag once per pass (the
     plain version); the kernels a traced replay shows.  Returns the
     record; restores the launch counter."""
+    from deneva_tpu_torch.engine.graph import no_collection_in_capture
     from deneva_tpu_torch.ops import device_loop
     c = torch.zeros((), dtype=torch.int32, device=dev)
     n = torch.tensor(1000, dtype=torch.int32, device=dev)
@@ -1574,7 +1595,7 @@ def measure_while(dev):
     host_pass_ms = a.elapsed_time(b) / 1000
     launches = device_loop.LAUNCHES
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with no_collection_in_capture(), torch.cuda.graph(graph):
         device_loop.run_while(step, "smoke", dev)
     device_loop.LAUNCHES = launches
 
@@ -1598,7 +1619,7 @@ def measure_while(dev):
     # counter's bump
     counter = device_loop.passes("smoke", dev)
     plain = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(plain):
+    with no_collection_in_capture(), torch.cuda.graph(plain):
         for _ in range(1000):
             step()
             counter.add_(1)
@@ -1822,6 +1843,7 @@ def check_maat_bound(dev):
     loop and one captured WHILE node stop it after exactly 66 passes, and
     after 1 with no row of two validators.  Restores the set-condition
     kernel's launch counter."""
+    from deneva_tpu_torch.engine.graph import no_collection_in_capture
     from deneva_tpu_torch.cc import maat
     from deneva_tpu_torch.ops import device_loop
     passes = torch.zeros((), dtype=torch.int32, device=dev)
@@ -1836,7 +1858,7 @@ def check_maat_bound(dev):
     got = [int(passes.item())]
     launches = device_loop.LAUNCHES
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with no_collection_in_capture(), torch.cuda.graph(graph):
         device_loop.run_while(step, "smoke_maat", dev)
     device_loop.LAUNCHES = launches
     for need in (True, False):
@@ -2510,12 +2532,274 @@ def phase_compaction(cells, Engine, timed_run, fused, rebase, dev, pps_pool,
     return bodies
 
 
+#: the sharded engine (phase 22): its cell, the ticks held eager ==
+#: replayed, the timed windows, and the CPU == CUDA cells with overrides
+SH_CELL = "headline_sharded4"
+SH_TICKS = 20
+SH_WINDOW = 50
+SH_CPU_CELLS = (("sharded2_small", {}), ("sharded8_small", {}),
+                ("sharded2_small", {"route_capacity_factor": 0.1}))
+
+
+def sharded_packs(eng):
+    """The sorts of a sharded tick, by (columns, keys, lanes, shift), with
+    their names, and their launches per tick: on each of the N nodes the
+    routing packs of exchange A (dest, held-first, lane) and exchange B
+    (dest, ts, lane), one pack shape of 3 columns by 2 keys at B*R lanes,
+    and the owner's NO_WAIT lock sort (3 by 2, row shift 1) and unpermute
+    (2 by 1) at its N*C + B*R lanes (NO_WAIT's validation sorts
+    nothing)."""
+    N = eng.cfg.node_cnt
+    nE = eng.cfg.batch_size * eng.pool.max_req
+    nV = N * eng.cap + nE
+    names = {(3, 2, nE, 0): "sharded routing A / B",
+             (3, 2, nV, 1): "sharded owner lock sort",
+             (2, 1, nV, 0): "sharded owner unpermute"}
+    return names, {(3, 2, nE, 0): 2 * N, (3, 2, nV, 1): N, (2, 1, nV, 0): N}
+
+
+def sharded_calls(fused, eng, state):
+    """The operands of every ``fused_sort_scan`` call of one tick from
+    `state`, in call order (the state moves one tick)."""
+    calls = []
+    orig = fused.fused_sort_scan
+
+    def record(operands, num_keys, shift=0):
+        ops = tuple(operands)
+        calls.append(([c.clone() for c in ops], num_keys, shift))
+        return orig(ops, num_keys, shift)
+
+    fused.fused_sort_scan = record
+    try:
+        state = eng.tick(state)
+    finally:
+        fused.fused_sort_scan = orig
+    return calls, state
+
+
+@contextlib.contextmanager
+def routing_legs(fused):
+    """The sort wrapper's launches inside ``routing.pack_by_dest``, by
+    leg (exchange A's packs; exchange B's, whose fields carry "cts"):
+    those made while a stream captures (a CUDA graph's plan) under
+    "captured", the others under "eager"."""
+    from deneva_tpu_torch.parallel import routing
+    legs = {"eager": {"A": 0, "B": 0}, "captured": {"A": 0, "B": 0}}
+    pack = routing.pack_by_dest
+
+    def counted(dest, prio, live, n_nodes, cap, fields):
+        n0 = fused.LAUNCHES
+        out = pack(dest, prio, live, n_nodes, cap, fields)
+        run = "captured" if torch.cuda.is_current_stream_capturing() \
+            else "eager"
+        legs[run]["B" if "cts" in fields else "A"] += fused.LAUNCHES - n0
+        return out
+
+    routing.pack_by_dest = counted
+    try:
+        yield legs
+    finally:
+        routing.pack_by_dest = pack
+
+
+def sharded_equal(label, a_eng, a, b_eng, b):
+    """``same_state`` plus every node's counters and rings."""
+    s = same_state(label, a_eng, a, b_eng, b)
+    bad = [k for k in a.stats
+           if not torch.equal(a.stats[k].cpu(), b.stats[k].cpu())]
+    if bad or sorted(a.stats) != sorted(b.stats):
+        raise AssertionError(f"{label}: per-node counters differ: {bad}")
+    return s
+
+
+def phase_sharded(cells, timed_run, fused, dev, gpu_line):
+    """The sharded engine on the card (phase 22 of the module docstring).
+    Returns the four packs' kernels-line rows."""
+    from deneva_tpu_torch.profile_tick import breakdown, host_syncs, \
+        trace_kernels
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = cells.engine(cells.config(SH_CELL), device=dev)
+    N, B, R = eng.cfg.node_cnt, eng.cfg.batch_size, eng.pool.max_req
+    names, per_tick = sharded_packs(eng)
+    nE = B * R
+    nV = N * eng.cap + nE
+    say("sharded", f"{SH_CELL}: {N} nodes x {eng.n_rows // N} rows, B={B}, "
+        f"R={R}, exchange capacity {eng.cap} lanes per node pair, owner "
+        f"width {nV}; pool and engine built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # eager == replayed over SH_TICKS ticks from the initial state
+    base_mb = torch.cuda.memory_allocated(dev) / 2**20
+    torch.cuda.reset_peak_memory_stats(dev)
+    se = eng.run(SH_TICKS)
+    eager_peak = torch.cuda.max_memory_allocated(dev) / 2**20 - base_mb
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with routing_legs(fused) as cap_legs:
+        sg = eng.run_compiled(0)
+    torch.cuda.synchronize(dev)
+    capture_s = time.perf_counter() - t0
+    # the routing launches of the one captured cluster-tick graph, by leg
+    captured = cap_legs["captured"]
+    sg = eng.run_compiled(SH_TICKS, sg)
+    graph_peak = torch.cuda.max_memory_allocated(dev) / 2**20 - base_mb
+    s = sharded_equal(f"{SH_CELL} eager == replayed", eng, se, eng, sg)
+    if eng.global_data_sum(sg) != s["write_cnt"] or not s["txn_cnt"] > 0:
+        raise AssertionError(f"{SH_CELL}: the oracle broke or nothing "
+                             "committed")
+    say("sharded", f"{SH_CELL}: {SH_TICKS} ticks eager == {SH_TICKS} "
+        f"replayed (summary, [summary] line, every node's data and "
+        f"counters, txn slots); global data sum == write_cnt="
+        f"{s['write_cnt']}; txn_cnt={s['txn_cnt']}; capture {capture_s:.2f}"
+        f" s (warm-up and {len(eng.graphs.graphs)} graph)")
+
+    # eager windows: the sort wrapper's launches by pack, and those of the
+    # routing packs by leg
+    c0 = eng.summary(se)
+    fused.reset_launches()
+    with routing_legs(fused) as win_legs:
+        eager_ms = []
+        for _ in range(3):
+            se, per = timed_run(eng, SH_WINDOW, se)
+            eager_ms.append(per * 1e3)
+    legs = win_legs["eager"]
+    eager_by_pack = dict(fused.LAUNCHES_BY_PACK)
+    ticks = 3 * SH_WINDOW
+    want = {p: n * ticks for p, n in per_tick.items()}
+    if eager_by_pack != want or legs != {"A": N * ticks, "B": N * ticks} \
+            or captured != {"A": N, "B": N}:
+        raise AssertionError(f"{SH_CELL}: launches by pack {eager_by_pack}"
+                             f" and routing launches {legs} eager, "
+                             f"{captured} in the captured tick, want {want}"
+                             f", {N * ticks} and {N} of each leg")
+    c1 = eng.summary(se)
+    d = {k: c1[k] - c0[k] for k in ("txn_cnt", "total_txn_abort_cnt",
+                                    "remote_entry_cnt",
+                                    "route_overflow_abort_cnt",
+                                    "commit_defer_cnt")}
+    fused.reset_launches()
+    graph_ms = []
+    for _ in range(3):
+        sg, per = timed_run(eng, SH_WINDOW, sg, compiled=True)
+        graph_ms.append(per * 1e3)
+    replayed = eng.graphs.launches_of(0, ticks)
+    # the routing launches of as many replays of the one graph, by leg
+    replayed_legs = {k: n * ticks for k, n in captured.items()}
+    if replayed != want:
+        raise AssertionError(f"{SH_CELL}: a replay's captured launches "
+                             f"{replayed}, want {want}")
+
+    # one trace of eager ticks (0 cummax) and one of replays, for times;
+    # host syncs of an eager tick; one captured tick's launches and nodes
+    box = [se]
+
+    def tick():
+        box[0] = eng.tick(box[0])
+
+    per_e, _ = trace_ticks(SH_CELL, eng, tick)
+    syncs, sites = host_syncs(tick, TRACE_TICKS)
+    if syncs:
+        raise AssertionError(f"{SH_CELL}: an eager tick syncs {syncs} times "
+                             f"at {sites}")
+    gbox = [sg]
+
+    def replay():
+        gbox[0] = eng.advance(1, gbox[0], compiled=True)
+
+    gsyncs, gsites = host_syncs(replay, TRACE_TICKS, "error")
+    per_g = breakdown(trace_kernels(replay, TRACE_TICKS), TRACE_TICKS)
+    nodes = captured_tick(SH_CELL, eng, box[0])
+
+    e_med, g_med = float(np.median(eager_ms)), float(np.median(graph_ms))
+    fmt = lambda xs: "[" + ", ".join(f"{x:.4f}" for x in xs) + "]"
+    say("sharded", f"{SH_CELL}: tick_ms eager median={e_med:.4f} "
+        f"{fmt(eager_ms)}, graph median={g_med:.4f} {fmt(graph_ms)} (3 "
+        f"windows of {SH_WINDOW} ticks each, cuda events; eager/graph "
+        f"{e_med / g_med:.2f}x) on {gpu_line}")
+    say("sharded", f"{SH_CELL}: per tick over the {ticks} eager ticks: "
+        f"commits {d['txn_cnt'] / ticks:.2f}, aborts "
+        f"{d['total_txn_abort_cnt'] / ticks:.2f} (abort rate "
+        f"{d['total_txn_abort_cnt'] / max(d['total_txn_abort_cnt'] + d['txn_cnt'], 1):.6f}"
+        f"), remote entries {d['remote_entry_cnt'] / ticks:.1f}, "
+        f"route-overflow aborts {d['route_overflow_abort_cnt'] / ticks:.3f}"
+        f", commit deferrals {d['commit_defer_cnt'] / ticks:.3f}")
+    say("sharded", f"{SH_CELL}: sort launches per tick {sum(per_tick.values())}"
+        f" by pack {{{', '.join(f'{names[p]}: {n}' for p, n in per_tick.items())}}}"
+        f" (wrapper count, eager and replayed; routing launches A={legs['A']} "
+        f"B={legs['B']} over {ticks} eager ticks, A={captured['A']} "
+        f"B={captured['B']} in the captured tick), 0 fallbacks")
+    say("sharded", f"{SH_CELL}: eager tick (torch.profiler, {TRACE_TICKS} "
+        f"ticks): {per_e['kernel_launches']:.1f} device launches, busy "
+        f"{per_e['device_busy_us']:.1f} us, fused kernel "
+        f"{per_e['fused_sort_scan_us']:.1f} us, idle "
+        f"{1 - per_e['device_busy_us'] / 1e3 / e_med:.3f}, torch.cummax "
+        f"{per_e['cummax_calls']:g} calls; replayed tick: "
+        f"{per_g['kernel_launches']:.1f} launches, busy "
+        f"{per_g['device_busy_us']:.1f} us, fused kernel "
+        f"{per_g['fused_sort_scan_us']:.1f} us, idle "
+        f"{1 - per_g['device_busy_us'] / 1e3 / g_med:.3f}; host syncs: "
+        f"{syncs:g} per eager tick, {gsyncs:g} per replay; a captured tick "
+        f"holds {nodes.get('kernel', 0)} kernel nodes")
+    say("sharded", f"{SH_CELL}: peak device memory above the engine's own "
+        f"{eager_peak:.1f} MB eager, {graph_peak:.1f} MB with the graph "
+        "(its static state and pool)")
+
+    # the four packs of a live tick, in call order: N routing A packs, the
+    # N owners' lock sort and unpermute, N routing B packs
+    calls, _ = sharded_calls(fused, eng, box[0])
+    picks = (("routing A (dest, held-first, lane)", 0, "A"),
+             ("owner lock sort (keykind, ts, payload)", N, None),
+             ("owner unpermute (entry index, decision)", N + 1, None),
+             ("routing B (dest, ts, lane)", 3 * N, "B"))
+    rows = []
+    for label, i, leg in picks:
+        cols, nk, shift = calls[i]
+        key = (len(cols), nk, cols[0].shape[0], shift)
+        if key not in per_tick:
+            raise AssertionError(f"{SH_CELL}: call {i} is {key}, not a "
+                                 f"pack of the plan {sorted(per_tick)}")
+        r = measure_pack(fused, f"{SH_CELL} {label}", cols, nk, shift)
+        r.update(label=f"{SH_CELL} {label}", pack=key,
+                 launches=legs[leg] if leg else eager_by_pack[key],
+                 replayed=replayed_legs[leg] if leg else replayed[key])
+        rows.append(r)
+
+    # CPU == CUDA on the small cells
+    for name, over in SH_CPU_CELLS:
+        cfg = cells.config(name, **over)
+        gpu = cells.engine(cfg, device=dev)
+        cpu = cells.engine(cfg, pool=gpu.pool, device="cpu")
+        sg_, sc_ = gpu.run(SH_TICKS), cpu.run(SH_TICKS)
+        label = " ".join([name] + [f"{k}={v}" for k, v in over.items()])
+        sm = sharded_equal(f"{label} CUDA == CPU", gpu, sg_, cpu, sc_)
+        if over and not sm["route_overflow_abort_cnt"] > 0:
+            raise AssertionError(f"{label}: no route overflow")
+        say("sharded", f"{label} {SH_TICKS} ticks: CUDA == CPU (summary, "
+            f"[summary] line, every node's data and counters, txn slots); "
+            f"txn_cnt={sm['txn_cnt']} total_txn_abort_cnt="
+            f"{sm['total_txn_abort_cnt']} route_overflow_abort_cnt="
+            f"{sm['route_overflow_abort_cnt']} remote_entry_cnt="
+            f"{sm['remote_entry_cnt']}")
+        del gpu, cpu, sg_, sc_
+    del eng, se, sg, box, gbox
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("sharded", f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 def graph_packs(eng):
     """The names of the packs the cell's tick sorts, by (columns, keys,
     lanes, shift), and the launches of each per tick on the eager path
     (the compacted effect body: no full-scale tick has taken the other)
     and per replay of a captured graph (the full-width effect body, which
     a captured tick runs whatever the reference's choice)."""
+    if eng.cfg.node_cnt > 1:
+        names, every = sharded_packs(eng)
+        return names, every, every
     if eng.cfg.workload == "YCSB":
         acc_names, every = access_packs(eng, "headline")
         return {**PACK_NAMES, **acc_names}, every, every
@@ -2831,6 +3115,7 @@ def main() -> int:
     # compaction's own packs are rows by cell, like the lock opt-ins'
     maat_body.update(phase_compaction(cells, Engine, timed_run, fused,
                                       rebase, dev, pps_pool, lock_rows))
+    sharded_rows = phase_sharded(cells, timed_run, fused, dev, phase_gpu())
 
     from deneva_tpu_torch.ops import device_loop
     gpu_line = phase_gpu()
@@ -2910,6 +3195,9 @@ def main() -> int:
                                 r["launches"], r["replayed"]))
     for (name, pack), r in sorted(lock_rows.items()):
         kernels.append(sort_row(r["label"], pack, r, r["launches"],
+                                r["replayed"]))
+    for r in sharded_rows:
+        kernels.append(sort_row(r["label"], r["pack"], r, r["launches"],
                                 r["replayed"]))
     kernels.append({
         "name": "graph_while[WHILE node: one pass of a bare loop, add + "

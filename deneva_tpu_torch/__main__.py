@@ -6,13 +6,15 @@
     python -m deneva_tpu_torch --cell headline_mvcc --device cuda --compiled
     python -m deneva_tpu_torch --cell pps_calvin --device cuda --compiled
     python -m deneva_tpu_torch --cell tpcc_occ --device cuda --compiled
+    python -m deneva_tpu_torch --cell headline_sharded4 --device cuda --compiled
 
 Runs 20 warm-up ticks, then ``--ticks`` timed ticks, and prints the
 ``[summary]`` line, commits per tick, and the tick time: from CUDA events
 on a GPU, from the host clock on the CPU.  ``--compiled`` runs both as
 ``Engine.run_compiled`` does: on a GPU as replays of CUDA graphs of the
 tick, on the CPU with no host read in the tick but for OCC's fixed-point
-flag.
+flag.  A cell of more than one node runs on the sharded engine
+(``parallel/sharded.py``), all its nodes on the one device.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import argparse
 
 from deneva_tpu_torch import cells
-from deneva_tpu_torch.engine.scheduler import Engine, timed_run
+from deneva_tpu_torch.engine.scheduler import timed_run
 
 #: ticks run before the timed window
 WARMUP_TICKS = 20
@@ -35,7 +37,7 @@ def main(argv=None) -> None:
                     help="run the ticks as Engine.run_compiled does")
     args = ap.parse_args(argv)
 
-    eng = Engine(cells.config(args.cell), device=args.device)
+    eng = cells.engine(cells.config(args.cell), device=args.device)
     run = eng.run_compiled if args.compiled else eng.run
     state = run(WARMUP_TICKS)
     before = eng.summary(state)["txn_cnt"]

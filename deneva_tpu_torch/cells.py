@@ -107,6 +107,22 @@ nothing cut:
 - ``headline_maat_compact``: ``headline_maat``, K = 49,152: validation
   compaction, the chain, its passes and the squeeze's scans at K, and the
   tick-wide stall of a spilled runner.
+
+The sharded engine (``parallel/sharded.py``), N nodes on one card:
+
+- ``headline_sharded4``: the reference's ``ycsb_scaling`` grid at four
+  nodes (``BASELINE.md``; ``part_per_txn = min(2, n)`` as in ``bench.py``'s
+  grid), each node at the ``headline`` cell's size (``bench.py``
+  ``YCSB_KW``): 16,777,216 rows a node (``synth_table_size`` 2^26), 65,536
+  queries a node (``query_pool_size`` 2^18), B=8192, R=10, zipf 0.6,
+  50/50 reads, admission capped at 1024, backoff, NO_WAIT with the fused
+  kernel, every txn multi-partition (``mpr`` 1.0) over 2 partitions, and
+  an exchange capacity of 2x the expected remote share (40,960 lanes per
+  node pair).  A node's tick arbitrates 81,920 home lanes and 245,760
+  owner lanes; the four ``data`` tables take 268 MB.  Nothing is cut.
+- ``sharded2_small`` and ``sharded8_small``: the same per-node shape at
+  B=256 and 16,384 rows a node, on 2 and 8 nodes, for the CPU == CUDA
+  checks.
 """
 
 from __future__ import annotations
@@ -157,6 +173,26 @@ for _name in ("headline", "headline_occ", "headline_maat", "tpcc_calvin"):
 for _name in ("headline", "tpcc", "headline_mvcc", "headline_maat"):
     CELLS[f"{_name}_compact"] = dict(CELLS[_name], compact_auto=True)
 
+CELLS["headline_sharded4"] = dict(
+    CELLS["headline"], node_cnt=4, part_cnt=4, synth_table_size=1 << 26,
+    query_pool_size=1 << 18, part_per_txn=2, mpr=1.0,
+    route_capacity_factor=2.0)
+for _n in (2, 8):
+    CELLS[f"sharded{_n}_small"] = dict(
+        CELLS["headline_sharded4"], node_cnt=_n, part_cnt=_n,
+        batch_size=256, synth_table_size=_n << 14,
+        query_pool_size=_n << 12)
+
 
 def config(name: str, **overrides) -> Config:
     return Config(**{**CELLS[name], **overrides})
+
+
+def engine(cfg: Config, pool=None, device="cuda"):
+    """The engine of a config: the sharded engine for more than one node,
+    else the single-shard engine."""
+    if cfg.node_cnt > 1:
+        from deneva_tpu_torch.parallel.sharded import ShardedEngine
+        return ShardedEngine(cfg, pool=pool, device=device)
+    from deneva_tpu_torch.engine.scheduler import Engine
+    return Engine(cfg, pool=pool, device=device)

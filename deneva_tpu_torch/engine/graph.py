@@ -1,12 +1,15 @@
-"""``Engine.run_compiled`` on CUDA: the tick as CUDA graphs.
+"""``Engine.run_compiled`` and ``ShardedEngine.run_compiled`` on CUDA: the
+tick as CUDA graphs.
 
 The reference jits the tick and runs ``n_ticks`` of it in one
 ``lax.fori_loop`` (``deneva_tpu/engine/scheduler.py:1191-1243``).  Here one
 tick is captured into a ``torch.cuda.CUDAGraph`` per flush phase (the
 write ring is flushed after every ``FLUSH_EVERY``-th tick, so only the
 last phase's graph ends with the flush), and a run replays them in phase
-order.  A replay launches every kernel of the tick from one host call and
-reads nothing back.
+order.  An engine names its phase count in ``graph_phases``: the sharded
+engine applies its writes at the owners, keeps no ring, and takes one
+graph of the whole cluster tick.  A replay launches every kernel of the
+tick from one host call and reads nothing back.
 
 What a captured tick keeps to (a later slice's tick too):
 
@@ -26,8 +29,9 @@ What a captured tick keeps to (a later slice's tick too):
   counter, PyTorch's own) happens in the warm-up, on a side stream,
   before the capture.
 
-The graphs run on static buffers, an ``EngineState`` made by
-``Engine.init_state``.  Inside each graph, the tick's new tensors (the
+The graphs run on static buffers, a state made by the engine's
+``init_state`` (an ``EngineState``, or a ``ShardState`` whose tensors
+carry a leading node axis).  Inside each graph, the tick's new tensors (the
 ``TxnState`` fields, ``pool_cursor``, ``ts_counter``, ``tick``) are
 copied back into those buffers; what the tick updates in place
 (``stats``, ``data``, ``tables``, ``db``: TIMESTAMP's ``wts`` and ``rts``
@@ -41,10 +45,29 @@ order on one stream are safe.  WHILE bodies allocate from a pool that
 
 from __future__ import annotations
 
+import contextlib
+import gc
+
 import torch
 
-from deneva_tpu_torch.engine.scheduler import FLUSH_EVERY, EngineState
+from deneva_tpu_torch.engine.scheduler import EngineState
 from deneva_tpu_torch.ops import fused
+
+
+@contextlib.contextmanager
+def no_collection_in_capture():
+    """Run no automatic garbage collection inside the block (a capture): a
+    dead reference cycle that holds a CUDA graph (an engine and its
+    ``TickGraphs``) collected while a stream captures destroys that graph
+    there, which CUDA does not permit, and the capture fails.  The cycle
+    is collected later, outside any capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def state_items(state: EngineState) -> list:
@@ -59,12 +82,14 @@ def state_items(state: EngineState) -> list:
 
 
 class TickGraphs:
-    """The tick of one engine captured once per flush phase, with its
-    static buffers (``static``) and the kernel launches by pack that one
-    replay of each phase graph makes (``launches``)."""
+    """The tick of one engine captured once per flush phase
+    (``engine.graph_phases`` graphs), with its static buffers (``static``)
+    and the kernel launches by pack that one replay of each phase graph
+    makes (``launches``)."""
 
     def __init__(self, engine):
         self.engine = engine
+        self.phases = engine.graph_phases
         self.static = engine.init_state()
         self.names = [k for k, _ in state_items(self.static)]
         self.buffers = [v for _, v in state_items(self.static)]
@@ -73,7 +98,7 @@ class TickGraphs:
         self.launches: list = []
         self._warm_up()
         pool = torch.cuda.graph_pool_handle()
-        self.graphs = [self._capture(p, pool) for p in range(FLUSH_EVERY)]
+        self.graphs = [self._capture(p, pool) for p in range(self.phases)]
 
     def _warm_up(self) -> None:
         """One tick of each phase on a side stream, the tick that is
@@ -87,7 +112,7 @@ class TickGraphs:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             st = self.static
-            for phase in range(FLUSH_EVERY):
+            for phase in range(self.phases):
                 st = eng.tick(st._replace(host_tick=phase), compiled=True)
         torch.cuda.current_stream(dev).wait_stream(side)
         for k, v in saved.items():
@@ -98,7 +123,8 @@ class TickGraphs:
         graph = torch.cuda.CUDAGraph()
         before = dict(fused.LAUNCHES_BY_PACK)
         try:
-            with torch.cuda.graph(graph, pool=pool):
+            with no_collection_in_capture(), \
+                    torch.cuda.graph(graph, pool=pool):
                 out = self.engine.tick(self.static._replace(host_tick=phase),
                                        compiled=True)
                 self._write_back(out)
@@ -142,7 +168,7 @@ class TickGraphs:
             dst.copy_(src)
         t = state.host_tick
         for _ in range(n_ticks):
-            self.graphs[t % FLUSH_EVERY].replay()
+            self.graphs[t % self.phases].replay()
             t += 1
         return self.static._replace(host_tick=t)
 
@@ -151,6 +177,6 @@ class TickGraphs:
         make: the sum of the phase graphs' captured launches."""
         out: dict = {}
         for t in range(host_tick, host_tick + n_ticks):
-            for k, v in self.launches[t % FLUSH_EVERY].items():
+            for k, v in self.launches[t % self.phases].items():
                 out[k] = out.get(k, 0) + v
         return out

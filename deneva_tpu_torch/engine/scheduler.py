@@ -55,8 +55,8 @@ import torch
 from deneva_tpu_torch import cc as cc_registry
 from deneva_tpu_torch import workloads as wl_registry
 from deneva_tpu_torch.config import (
-    CALVIN, MAAT, MODE_NORMAL, MVCC, NO_WAIT, OCC, PPS, TIMESTAMP, TPCC,
-    WAIT_DIE, YCSB, Config, optin_flags,
+    CALVIN, MAAT, MODE_NORMAL, MVCC, NO_WAIT, OCC, PPS, SERIALIZABLE,
+    TIMESTAMP, TPCC, WAIT_DIE, YCSB, Config, optin_flags,
 )
 from deneva_tpu_torch.device import resolve_device
 from deneva_tpu_torch.engine.state import (
@@ -121,42 +121,102 @@ ADMITTED_OPTINS = ("fused_arbitrate", "pipeline_exchange", "compact_auto",
                    "compact_lanes")
 
 
-def check_slice(cfg: Config) -> None:
-    """Raise NotImplementedError for a config outside the ported slice."""
+def refuse_outside(cfg: Config, slice_: str, algs, workloads, optins,
+                   node_rule: str | None, levels=None, at=()) -> None:
+    """Raise NotImplementedError naming every setting of `cfg` outside a
+    ported slice (described by `slice_` in the message): a plugin not in
+    `algs`, a workload not in `workloads`, an isolation level not in
+    `levels` (None admits any), a mode other than NORMAL, the node rule's
+    complaint `node_rule` (None when the layout is admitted), a field of
+    the ``(name, value)`` pairs `at` at another value, and an opt-in flag
+    not in `optins` off its default."""
     bad = []
-    if cfg.cc_alg not in (NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN, OCC,
-                          MAAT):
+    if cfg.cc_alg not in algs:
         bad.append(f"cc_alg={cfg.cc_alg}")
-    if cfg.workload not in (YCSB, TPCC, PPS):
+    if cfg.workload not in workloads:
         bad.append(f"workload={cfg.workload}")
+    if levels is not None and cfg.isolation_level not in levels:
+        bad.append(f"isolation_level={cfg.isolation_level}")
     if cfg.mode != MODE_NORMAL:
         bad.append(f"mode={cfg.mode}")
-    if cfg.node_cnt != 1 or cfg.part_cnt != 1:
-        bad.append(f"node_cnt={cfg.node_cnt}, part_cnt={cfg.part_cnt}")
-    for name, flag in optin_flags().items():
-        if name not in ADMITTED_OPTINS \
-                and getattr(cfg, name) != flag.default:
-            bad.append(name)
+    if node_rule:
+        bad.append(node_rule)
+    bad += [f"{name}={getattr(cfg, name)}" for name, value in at
+            if getattr(cfg, name) != value]
+    bad += [name for name, flag in optin_flags().items()
+            if name not in optins and getattr(cfg, name) != flag.default]
     if bad:
-        raise NotImplementedError(
-            "outside the ported slice (YCSB, TPC-C or PPS under NO_WAIT, "
-            "WAIT_DIE, TIMESTAMP, MVCC, CALVIN, OCC or MAAT, single shard, "
-            "NORMAL mode; commit_after_access, any isolation_level, "
-            "sub_ticks, dense_lock_state, compact_auto, compact_lanes, "
-            "fused_arbitrate and pipeline_exchange, every other flag at "
-            "its default): "
-            + ", ".join(bad))
+        raise NotImplementedError(f"outside the ported slice{slice_}: "
+                                  + ", ".join(bad))
 
 
-def _zeros_stats(B: int, R: int, device) -> dict:
+def check_slice(cfg: Config) -> None:
+    """Raise NotImplementedError for a config outside the ported slice."""
+    single = cfg.node_cnt == 1 and cfg.part_cnt == 1
+    refuse_outside(
+        cfg, " (YCSB, TPC-C or PPS under NO_WAIT, WAIT_DIE, TIMESTAMP, "
+        "MVCC, CALVIN, OCC or MAAT, single shard, NORMAL mode; "
+        "commit_after_access, any isolation_level, sub_ticks, "
+        "dense_lock_state, compact_auto, compact_lanes, fused_arbitrate "
+        "and pipeline_exchange, every other flag at its default)",
+        (NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC, CALVIN, OCC, MAAT),
+        (YCSB, TPCC, PPS), ADMITTED_OPTINS,
+        None if single else
+        f"node_cnt={cfg.node_cnt}, part_cnt={cfg.part_cnt} (more than one "
+        "node runs on deneva_tpu_torch.parallel.sharded.ShardedEngine)")
+
+
+#: opt-in flags the sharded slice admits (``check_sharded_slice``)
+SHARDED_ADMITTED_OPTINS = ("fused_arbitrate",)
+
+
+def check_sharded_slice(cfg: Config) -> None:
+    """Raise NotImplementedError for a config outside the ported slice of
+    the sharded engine: NO_WAIT on YCSB at SERIALIZABLE in NORMAL mode,
+    ``node_cnt == part_cnt`` in 1..8, ``fused_arbitrate`` on or off, and
+    the plain knobs (``acquire_window``, ``route_capacity_factor``,
+    ``part_per_txn``, ``mpr``, ``strict_ppt``, ``first_part_local``,
+    ``backoff``, ``admit_cap``, sizes and penalties); every other flag at
+    its default."""
+    layout = cfg.node_cnt == cfg.part_cnt and 1 <= cfg.node_cnt <= 8
+    refuse_outside(
+        cfg, " of the sharded engine (NO_WAIT on YCSB, SERIALIZABLE, "
+        "NORMAL mode, node_cnt == part_cnt in 1..8, fused_arbitrate, every "
+        "other flag at its default)",
+        (NO_WAIT,), (YCSB,), SHARDED_ADMITTED_OPTINS,
+        None if layout else
+        f"node_cnt={cfg.node_cnt}, part_cnt={cfg.part_cnt}",
+        levels=(SERIALIZABLE,),
+        at=(("repl_mode", "aa"), ("commit_after_access", False),
+            ("sub_ticks", 1), ("dense_lock_state", False),
+            ("restart_new_ts", False)))
+
+
+def penalty_ticks(cfg: Config, restarts: torch.Tensor) -> torch.Tensor:
+    """Abort penalty of a txn with `restarts` restarts: exponential
+    backoff capped at ``abort_penalty_max_ticks``, or the flat penalty
+    (abort_queue.cpp:26-82)."""
+    if not cfg.backoff:
+        return torch.full_like(restarts, cfg.abort_penalty_ticks)
+    shift = torch.clamp(restarts, max=16)
+    return torch.clamp(
+        cfg.abort_penalty_ticks * (torch.ones_like(shift) << shift),
+        max=cfg.abort_penalty_max_ticks)
+
+
+def _zeros_stats(B: int, R: int, device, write_ring: bool = True) -> dict:
     """Counters and rings at default flags.  Rings that take dropped lanes
-    carry B scratch cells past their end (see the scatter sites)."""
+    carry B scratch cells past their end (see the scatter sites).  The
+    sharded engine applies its writes at the owners and keeps no write
+    ring (``write_ring=False``)."""
     z = lambda dt: torch.zeros((), dtype=dt, device=device)
     s = {k: z(I32) for k in STAT_KEYS_I32}
     s.update({k: z(F32) for k in STAT_KEYS_F32})
     s["arr_lat_short"] = torch.zeros(LAT_SAMPLES + B, dtype=I32,
                                      device=device)
     s["lat_ring_cursor"] = z(I32)
+    if not write_ring:
+        return s
     # committed-write ring: one (R,) row per committing txn, 4B rows plus
     # B scratch rows for non-writing lanes
     s["arr_wr_ring"] = torch.full((5 * B, R), NULL_ROW, dtype=I32,
@@ -258,10 +318,27 @@ def record_commit_latency(stats: dict, commit, t, start_tick,
     return stats
 
 
-def track_parts_touched(stats: dict, commit, measuring) -> dict:
-    """Distinct-partition counters per commit: one partition each, on the
-    single-partition slice (check_slice refuses part_cnt > 1)."""
-    return bump(stats, "parts_touched", commit.sum(dtype=I32), measuring)
+def track_parts_touched(stats: dict, commit, measuring, txn=None,
+                        n_parts: int = 1) -> dict:
+    """Distinct-partition counters per commit (partitions_touched,
+    system/query.h): one partition each on one partition; with
+    ``n_parts`` > 1 (the sharded engine, up to 31 partitions) the
+    distinct partitions of each committing txn's accesses, and the
+    commits that touch more than one.  The partitions of a txn are
+    counted by an order-free scatter-max of its access mask into
+    ``(B, n_parts)`` cells."""
+    if n_parts <= 1 or n_parts > 31:
+        return bump(stats, "parts_touched", commit.sum(dtype=I32), measuring)
+    B, R = txn.keys.shape
+    ridx = torch.arange(R, dtype=I32, device=commit.device)[None, :]
+    amask = (ridx < txn.n_req[:, None]).to(I32)
+    touched = torch.zeros((B, n_parts), dtype=I32, device=commit.device) \
+        .scatter_reduce_(1, (txn.keys % n_parts).to(I64), amask, "amax")
+    npart = touched.sum(dim=1, dtype=I32)
+    stats = bump(stats, "parts_touched",
+                 torch.where(commit, npart, 0).sum(dtype=I32), measuring)
+    return bump(stats, "multi_part_txn_cnt",
+                (commit & (npart > 1)).sum(dtype=I32), measuring)
 
 
 def track_state_latencies(stats: dict, txn: TxnState, measuring) -> dict:
@@ -299,14 +376,6 @@ def make_tick(cfg: Config, plugin, pool_dev: dict, workload,
     redraw = plugin.new_ts_on_restart or cfg.restart_new_ts
     recon = plugin.epoch_admission and bool(workload.recon_types)
     REBASE_AT, REBASE_BY = 3 << 29, 1 << 30
-
-    def _penalty(restarts):
-        if not cfg.backoff:
-            return torch.full_like(restarts, cfg.abort_penalty_ticks)
-        shift = torch.clamp(restarts, max=16)
-        return torch.clamp(
-            cfg.abort_penalty_ticks * (torch.ones_like(shift) << shift),
-            max=cfg.abort_penalty_max_ticks)
 
     def tick_fn(state: EngineState) -> EngineState:
         txn, db, data, stats = state.txn, state.db, state.data, state.stats
@@ -450,8 +519,9 @@ def make_tick(cfg: Config, plugin, pool_dev: dict, workload,
             return txn._replace(
                 status=torch.where(abort, STATUS_BACKOFF, txn.status),
                 cursor=torch.where(abort, 0, txn.cursor),
-                backoff_until=torch.where(abort, t + _penalty(txn.restarts),
-                                          txn.backoff_until),
+                backoff_until=torch.where(
+                    abort, t + penalty_ticks(cfg, txn.restarts),
+                    txn.backoff_until),
                 restarts=torch.where(abort, txn.restarts + 1,
                                      txn.restarts)), stats
 
@@ -561,9 +631,15 @@ class Engine:
     """Single-shard scheduler on one device.  ``device`` defaults to CUDA;
     pass ``device="cpu"`` to run on the host."""
 
+    #: the tick's CUDA graphs, one per flush phase of the write ring
+    graph_phases = FLUSH_EVERY
+
+    #: the check that refuses a config outside the engine's slice
+    check = staticmethod(check_slice)
+
     def __init__(self, cfg: Config, pool: QueryPool | None = None,
                  device="cuda"):
-        check_slice(cfg)
+        self.check(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plugin = cc_registry.get(cfg.cc_alg)
@@ -572,14 +648,19 @@ class Engine:
             pool = self.workload.gen_pool(cfg)
         self.pool = pool
         self.n_rows = self.workload.cc_rows(cfg)
-        self.pool_dev = _pool_to_device(pool, self.device)
         self.workload.init_counters(self.device)
         #: the eager tick, and the host-read-free tick of run_compiled
-        self._tick_fns = {
-            c: make_tick(cfg, self.plugin, self.pool_dev, self.workload,
-                         on_device=c) for c in (False, True)}
+        self._tick_fns = self._make_ticks()
         #: the captured phase graphs of ``run_compiled`` on CUDA
         self.graphs = None
+
+    def _make_ticks(self) -> dict:
+        """Put the query pool on the device (``pool_dev``) and return the
+        tick by ``compiled``."""
+        self.pool_dev = _pool_to_device(self.pool, self.device)
+        return {c: make_tick(self.cfg, self.plugin, self.pool_dev,
+                             self.workload, on_device=c)
+                for c in (False, True)}
 
     def init_state(self) -> EngineState:
         cfg, dev = self.cfg, self.device

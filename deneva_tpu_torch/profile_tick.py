@@ -8,6 +8,7 @@
     python -m deneva_tpu_torch.profile_tick --cell tpcc_timestamp --compiled
     python -m deneva_tpu_torch.profile_tick --cell tpcc_mvcc --compiled
     python -m deneva_tpu_torch.profile_tick --cell tpcc_occ --compiled
+    python -m deneva_tpu_torch.profile_tick --cell headline_sharded4 --compiled
 
 Runs the cell's warm-up, then times ``--ticks`` ticks with CUDA events
 (no profiler attached), counting the fused kernel's launches by pack,
@@ -38,7 +39,7 @@ import warnings
 import torch
 
 from deneva_tpu_torch import cells
-from deneva_tpu_torch.engine.scheduler import Engine, timed_run
+from deneva_tpu_torch.engine.scheduler import timed_run
 from deneva_tpu_torch.ops import fused
 
 #: kernel name of csrc/fused_sort_scan.cu
@@ -123,8 +124,9 @@ def graph_nodes(fn) -> dict:
     makes on the stream becomes one node; a profiler trace can lose or
     gain kernels).  `fn` must have run once outside a capture."""
     import ctypes
+    from deneva_tpu_torch.engine.graph import no_collection_in_capture
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
+    with no_collection_in_capture(), torch.cuda.graph(graph):
         fn()
     lib = ctypes.CDLL("libcuda.so.1")
 
@@ -198,7 +200,7 @@ def main(argv=None) -> int:
         print("profile_tick needs a CUDA device", file=sys.stderr)
         return 2
 
-    eng = Engine(cells.config(args.cell), device="cuda")
+    eng = cells.engine(cells.config(args.cell), device="cuda")
     state = eng.run(args.warmup)
     fused.reset_launches()
     state, per_tick = timed_run(eng, args.ticks, state,

@@ -439,3 +439,21 @@ def test_effect_branch_on_device_masks():
         assert list(seen) == ["full"]
         assert torch.equal(seen["full"], eff)
     assert wl.branch_ticks == {"compact": 1, "full": 1}
+
+
+def test_no_collection_in_capture_turns_collection_off_and_back():
+    # the CUDA-graph captures of run_compiled run inside this: no
+    # automatic collection there, and the caller's own setting after it
+    import gc
+    from deneva_tpu_torch.engine.graph import no_collection_in_capture
+    assert gc.isenabled()
+    with no_collection_in_capture():
+        assert not gc.isenabled()
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with no_collection_in_capture():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -801,6 +801,23 @@ def test_while_node_has_no_bound(dev):
         assert int(device_loop.passes("test", dev)) == want
 
 
+def test_captured_tick_runs_no_collection(dev):
+    # a dead engine's graphs that a collection frees inside another
+    # engine's capture are destroyed there, which fails the capture: the
+    # tick's captures run with automatic collection off (its warm-up not)
+    import gc
+    eng = Engine(Config(**GRAPH_CFGS["ycsb"]), device=dev)
+    tick, seen = eng._tick_fns[True], []
+
+    def spy(state):
+        seen.append(gc.isenabled())
+        return tick(state)
+
+    eng._tick_fns[True] = spy
+    eng.run_compiled(3)
+    assert seen == [True] * 3 + [False] * 3 and gc.isenabled()
+
+
 def test_graph_replay_without_fused_kernel(dev):
     # the plain sorts (torch.sort) are captured as well
     cfg = Config(**GRAPH_CFGS["ycsb"])

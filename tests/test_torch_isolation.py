@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from deneva_tpu_torch.config import Config  # noqa: E402
 from deneva_tpu_torch.engine.scheduler import Engine  # noqa: E402
 from deneva_tpu_torch.ops import cuda_build  # noqa: E402
+from deneva_tpu_torch.parallel.sharded import ShardedEngine  # noqa: E402
 from deneva_tpu_torch.storage.ordered import OrderedIndex  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
@@ -36,6 +37,8 @@ MODULES = (
     "deneva_tpu_torch.cc.no_wait", "deneva_tpu_torch.cc.timestamp",
     "deneva_tpu_torch.cc.calvin", "deneva_tpu_torch.cc.occ",
     "deneva_tpu_torch.cc.maat",
+    "deneva_tpu_torch.parallel", "deneva_tpu_torch.parallel.routing",
+    "deneva_tpu_torch.parallel.sharded",
     "deneva_tpu_torch.profile_tick",
     "chip_smoke",
 )
@@ -165,6 +168,61 @@ def test_commit_after_access_alone_is_admitted():
                         query_pool_size=16, commit_after_access=True),
                  device="cpu")
     assert eng.summary(eng.run(5))["measured_ticks"] == 5
+
+
+#: what the sharded engine refuses: other plugins and workloads, the
+#: sharded opt-ins still to port, the mode ladder, compaction, and the
+#: isolation levels but SERIALIZABLE
+SHARDED_OUTSIDE = {
+    "wait_die": dict(cc_alg="WAIT_DIE"),
+    "timestamp": dict(cc_alg="TIMESTAMP"),
+    "calvin": dict(cc_alg="CALVIN"),
+    "tpcc": dict(workload="TPCC"),
+    "pps": dict(workload="PPS"),
+    "net_delay_ticks": dict(net_delay_ticks=1),
+    "exchange_split": dict(exchange_split=True),
+    "pipeline_exchange": dict(pipeline_exchange=True, exchange_split=True),
+    "remote_cache": dict(remote_cache=True),
+    "nocc_mode": dict(mode="NOCC"),
+    "compact_auto": dict(compact_auto=True),
+    "compact_lanes": dict(compact_lanes=24),
+    "read_committed": dict(isolation_level="READ_COMMITTED"),
+    "logging": dict(logging=True),
+    "mesh": dict(mesh=True),
+    "abort_attribution": dict(abort_attribution=True),
+    "sub_ticks": dict(sub_ticks=2),
+    "dense_lock_state": dict(dense_lock_state=True),
+    "nine_nodes": dict(node_cnt=9, part_cnt=9, synth_table_size=72),
+    "parts_per_node": dict(node_cnt=2, part_cnt=4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHARDED_OUTSIDE))
+def test_sharded_config_outside_the_slice_raises(case):
+    kw = dict(dict(node_cnt=2, part_cnt=2), **SHARDED_OUTSIDE[case])
+    cfg = Config(batch_size=8, synth_table_size=kw.pop("synth_table_size",
+                                                       64),
+                 req_per_query=2, query_pool_size=16, **kw)
+    with pytest.raises(NotImplementedError, match="outside the ported slice"):
+        ShardedEngine(cfg, device="cpu")
+
+
+def test_engine_refuses_nodes_and_names_the_sharded_engine():
+    with pytest.raises(NotImplementedError, match="ShardedEngine"):
+        Engine(Config(node_cnt=2, part_cnt=2, batch_size=8,
+                      synth_table_size=64, req_per_query=2,
+                      query_pool_size=16), device="cpu")
+
+
+def test_sharded_engine_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    cfg = Config(node_cnt=2, part_cnt=2, batch_size=8, synth_table_size=64,
+                 req_per_query=2, query_pool_size=16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ShardedEngine(cfg)
+    eng = ShardedEngine(cfg, device="cpu")
+    assert eng.summary(eng.run(3))["measured_ticks"] == 3
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
