@@ -176,22 +176,41 @@ Phases, each printing one line:
      with ``compact_lanes`` = 8,192, which must spill (CP_CPU_OTHERS);
  22. the sharded engine (``parallel/sharded.py``), run after phase 21 and
      before phase 20: on headline_sharded4 (four nodes of the headline's
-     size on the card, NO_WAIT, fused_arbitrate), SH_TICKS eager ticks
-     and SH_TICKS graph replays from one initial state equal (summary,
-     [summary] line, every node's data and counters, txn slots) with the
-     write-count oracle; then 3 windows of SH_WINDOW eager ticks, with the
-     sort kernel's launches by pack (per node and tick: routing A and B,
-     3 columns by 2 keys at B*R lanes, the lock sort and the unpermute at
-     the owner's N*C + B*R lanes: 16 a tick), and 3 windows of replays,
-     each cell's tick ms the median of its windows; commits per tick,
-     abort rate, remote entries and route-overflow aborts per tick, peak
-     memory; one trace of eager ticks and one of replays (times, idle
-     share, 0 torch.cummax), the host syncs of an eager tick (0), a
-     captured tick's sort launches and graph nodes; each of the four
-     packs, taken from a live tick, held bit-equal to the plain version
-     and timed as a row of its own; then CPU == CUDA on sharded2_small,
+     size on the card, NO_WAIT, fused_arbitrate), ``sharded_cell``:
+     SH_TICKS eager ticks and SH_TICKS graph replays from one initial
+     state equal (summary, [summary] line, every node's data, CC arrays
+     and counters, txn slots) with the write-count oracle; one timed
+     window of SH_WINDOW eager ticks with the sort kernel's launches by
+     pack (per node and tick: routing A and B, 3 columns by 2 keys at
+     B*R lanes, and at the owner's N*C + B*R lanes the plugin's sorts:
+     16 a tick under NO_WAIT), the routing packs' by leg and the rebase
+     kernel's by rule, each count set to 0 just before the window and
+     read just after; 3 windows of replays and their captured launches;
+     commits, abort rate, waits, remote entries, route-overflow aborts,
+     deferrals and mvcc_tail_fold_cnt per tick, peak memory; one trace of
+     eager ticks and one of replays (0 torch.cummax), each also timed by
+     CUDA events inside the trace, and the idle share (busy against the
+     untraced tick; "unresolved" where busy is above it), the host syncs
+     of either (0), a captured tick's sort,
+     routing and rebase launches and graph nodes; each of the four packs,
+     taken from a live tick, held bit-equal to the plain version and
+     timed as a row of its own; then CPU == CUDA on sharded2_small,
      sharded8_small and sharded2_small with a starved exchange
      (SH_CPU_CELLS), every node's counters and txn slots included;
+ 23. the sharded engine under the plugins with no sharded hook, run after
+     phase 22 and before phase 20: ``sharded_cell`` on each of
+     headline_sharded4_wait_die, headline_sharded4_timestamp and
+     headline_sharded4_mvcc (SP_CELLS), whose owners sort the lock sort
+     (WAIT_DIE) or T/O's 7x2 decision sort (TIMESTAMP, MVCC), the
+     unpermute, and MVCC's 4x2 version insert (16 / 16 / 20 sorts a
+     tick) and rebase 0 / N plain / N ring + N plain times a tick
+     (SH_REBASE); the two packs phase 22 does not sort, taken from a live
+     tick, held bit-equal and timed as rows of their own; then CPU ==
+     CUDA on sharded8_small under each of the three plugins, on
+     sharded2_small under WAIT_DIE, and on sharded2_small under TIMESTAMP
+     and MVCC across a forced rebase (SP_REBASE_TICKS: the counters set
+     just under the limit, the rebase kernel's launches counted, in-flight
+     timestamps clamped to 1);
  20. Engine.run_compiled, the tick as CUDA graphs, on the headline, tpcc,
      pps, pps_wait_die, headline_timestamp, tpcc_timestamp, headline_mvcc,
      tpcc_mvcc, headline_calvin, tpcc_calvin, pps_calvin, headline_occ,
@@ -207,7 +226,7 @@ Phases, each printing one line:
      the full-width effect body (a captured tick runs it whatever the
      reference's choice, see workloads/base.py), one more tick captured
      (not replayed) holds them and counts its graph nodes, and a traced
-     window of replays gives the device times; the eager and the graph tick ms (3 windows of 50 ticks, CUDA events) beside the
+     window of replays gives the device times; the eager and the graph tick ms (2 windows of 50 ticks, CUDA events) beside the
      card's name and power limit, every window, the replay windows once
      more after the trace, the SM clock nvidia-smi samples while the
      replays run, and the peak memory of both; the packs only a captured tick sorts (the full-width
@@ -222,7 +241,8 @@ one for each OCC cell's validation sort, one for each pack of the lock
 opt-in cells' access phase and for each pack a compaction cell sorts
 that its flagless cell does not, one per use of the rebase kernel
 (T/O's plain rule, MVCC's and MAAT's ring rule) at the main path's shift
-of 0, with its numbers at 2^30 under ``rebase_tick``, and one for the
+of 0, with its numbers at 2^30 under ``rebase_tick`` and the sharded
+path's launches (phase 23) under ``sharded_launches``, and one for the
 WHILE node, whose launches are the captures of its set-condition kernel
 on the OCC and MAAT cells' graph path and whose replayed launches are the
 passes those replays ran; ``launches``
@@ -260,7 +280,9 @@ MAIN_N = 8192 * 10           # B * R lanes of the headline cell
 #: widths 1..130 as in tests/test_fused.py, and one that is not a power of
 #: two between 2 and 8 tiles of 1024 records (6 tiles: 3 merge levels)
 UNIT_WIDTHS = (1, 2, 7, 64, 96, 128, 130, 6007)
-TRACE_TICKS = 10
+#: ticks of a torch.profiler trace or a sync-debug window (10 before
+#: phase 23 was added: the script stays well inside its limit)
+TRACE_TICKS = 5
 TPCC_TICKS = 150
 TPCC_CPU_TICKS = 40
 PPS_TICKS = 150
@@ -272,7 +294,7 @@ TO_CPU_TICKS = (("headline_timestamp", {}, 20), ("tpcc_timestamp", {}, 20),
                 ("pps", {"cc_alg": "TIMESTAMP"}, 20),
                 ("headline_timestamp", {"ts_twr": True}, 20))
 #: ticks of the CPU == CUDA checks under MVCC, by cell and overrides
-MV_CPU_TICKS = (("headline_mvcc", {}, 20), ("tpcc_mvcc", {}, 20),
+MV_CPU_TICKS = (("headline_mvcc", {}, 14), ("tpcc_mvcc", {}, 14),
                 ("pps", {"cc_alg": "MVCC"}, 20))
 #: ticks of the CPU == CUDA checks under CALVIN, by cell
 CA_CPU_TICKS = (("headline_calvin", 20), ("tpcc_calvin", 20),
@@ -303,7 +325,8 @@ GRAPH_CELLS = ("headline", "tpcc", "pps", "pps_wait_die",
                "headline_maat_caa", "tpcc_calvin_caa", "headline_compact",
                "tpcc_compact", "headline_mvcc_compact",
                "headline_maat_compact")
-GRAPH_TICKS = 150
+#: (150 before phase 23 was added: the script stays well inside its limit)
+GRAPH_TICKS = 100
 #: the packs a headline tick sorts, as (columns, keys, lanes, shift)
 PACK_NAMES = {
     (3, 2, MAIN_N, 1): "headline lock sort",
@@ -770,15 +793,16 @@ def loop_syncs(eng, tick, n_ticks, want_other, other_files):
     return syncs, passes, sites
 
 
-def captured_tick(name, eng, state):
+def captured_tick(name, eng, state, rebase_out=None):
     """One tick as ``run_compiled`` runs it, captured into a CUDA graph that
     is not replayed, so `state` does not move: the sort wrapper's launches
     by pack inside the capture, each one kernel node of the graph (as
     ``measure_pack`` holds for every pack), must be those ``graph_packs``
     plans for a replayed tick.  Returns the graph's nodes by type
     (``profile_tick.graph_nodes``), a tick's device work counted exactly,
-    where a torch.profiler trace can lose or gain launches.  Restores the
-    launch counters the capture moves."""
+    where a torch.profiler trace can lose or gain launches; the rebase
+    kernel's launches by rule inside the capture go into `rebase_out`.
+    Restores the launch counters the capture moves."""
     from deneva_tpu_torch.ops import device_loop, fused, rebase
     from deneva_tpu_torch.profile_tick import graph_nodes
     saved = (fused.LAUNCHES, dict(fused.LAUNCHES_BY_PACK),
@@ -788,6 +812,8 @@ def captured_tick(name, eng, state):
         by_pack = {k: v - saved[1].get(k, 0)
                    for k, v in fused.LAUNCHES_BY_PACK.items()
                    if v != saved[1].get(k, 0)}
+        if rebase_out is not None:
+            rebase_out.update(launch_delta(rebase.LAUNCHES, saved[3]))
     finally:
         fused.LAUNCHES, fused.LAUNCHES_BY_PACK = saved[0], saved[1]
         device_loop.LAUNCHES = saved[2]
@@ -2226,7 +2252,7 @@ CAA_TICKS = 50
 CAA_CPU_TICKS = 20
 CAA_CPU_OTHERS = (("headline", {"cc_alg": "WAIT_DIE"}, 20),
                   ("headline", {"cc_alg": "TIMESTAMP"}, 20),
-                  ("headline", {"cc_alg": "MVCC"}, 20),
+                  ("headline", {"cc_alg": "MVCC"}, 14),
                   ("pps", {}, PPS_CPU_TICKS),
                   ("pps", {"cc_alg": "MAAT"}, 20))
 
@@ -2546,16 +2572,24 @@ def sharded_packs(eng):
     their names, and their launches per tick: on each of the N nodes the
     routing packs of exchange A (dest, held-first, lane) and exchange B
     (dest, ts, lane), one pack shape of 3 columns by 2 keys at B*R lanes,
-    and the owner's NO_WAIT lock sort (3 by 2, row shift 1) and unpermute
-    (2 by 1) at its N*C + B*R lanes (NO_WAIT's validation sorts
+    and at the owner's N*C + B*R lanes the plugin's sorts: the lock sort
+    (3 by 2, row shift 1) under NO_WAIT and WAIT_DIE, T/O's decision sort
+    (``timestamp.pending_before``, 7 by 2, four of them bools) under
+    TIMESTAMP and MVCC, then the unpermute (2 by 1), and MVCC's version
+    insert (4 by 2, one bool) at exchange B (the validations sort
     nothing)."""
     N = eng.cfg.node_cnt
     nE = eng.cfg.batch_size * eng.pool.max_req
     nV = N * eng.cap + nE
     names = {(3, 2, nE, 0): "sharded routing A / B",
-             (3, 2, nV, 1): "sharded owner lock sort",
              (2, 1, nV, 0): "sharded owner unpermute"}
-    return names, {(3, 2, nE, 0): 2 * N, (3, 2, nV, 1): N, (2, 1, nV, 0): N}
+    if eng.plugin.name in ("NO_WAIT", "WAIT_DIE"):
+        names[(3, 2, nV, 1)] = "sharded owner lock sort"
+    else:
+        names[(7, 2, nV, 0)] = "sharded owner T/O decision sort"
+    if eng.plugin.name == "MVCC":
+        names[(4, 2, nV, 0)] = "sharded owner MVCC version insert"
+    return names, {p: 2 * N if p[2] == nE else N for p in names}
 
 
 def sharded_calls(fused, eng, state):
@@ -2612,23 +2646,78 @@ def sharded_equal(label, a_eng, a, b_eng, b):
     return s
 
 
-def phase_sharded(cells, timed_run, fused, dev, gpu_line):
-    """The sharded engine on the card (phase 22 of the module docstring).
-    Returns the four packs' kernels-line rows."""
+#: the rebase kernel's launches a node and tick on a sharded cell, by rule
+SH_REBASE = {"NO_WAIT": {}, "WAIT_DIE": {}, "TIMESTAMP": {"plain": 1},
+             "MVCC": {"ring": 1, "plain": 1}}
+
+
+def launch_delta(after, before):
+    """The launch counts by key that moved from `before` to `after`."""
+    return {k: after.get(k, 0) - before.get(k, 0)
+            for k in sorted(set(after) | set(before))
+            if after.get(k, 0) != before.get(k, 0)}
+
+
+def with_events(fn):
+    """`fn` with CUDA events recorded around each call, and the list they
+    go to: the time of the last `n` calls is ``events_ms(marks, n)``."""
+    marks = []
+
+    def timed():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+
+    return timed, marks
+
+
+def events_ms(marks, n):
+    """ms per call over the last `n` calls that ``with_events`` timed."""
+    torch.cuda.synchronize()
+    return marks[-n][0].elapsed_time(marks[-1][1]) / n
+
+
+def idle_share(busy_us, ms):
+    """1 - busy / tick time.  Busy time comes from a torch.profiler trace,
+    the tick time from an untraced window (the profiler slows a traced
+    replay 2-3x); where busy exceeds the tick time the two readings
+    disagree, and no share is printed."""
+    if busy_us / 1e3 > ms:
+        return f"unresolved (busy {busy_us / 1e3:.4f} ms > {ms:.4f} ms)"
+    return f"{1 - busy_us / 1e3 / ms:.3f}"
+
+
+def sharded_cell(cells, name, timed_run, fused, rebase, dev, gpu_line):
+    """One sharded cell on the card (phases 22 and 23): SH_TICKS eager
+    ticks == SH_TICKS replays from one initial state (summary, [summary]
+    line, every node's data, CC arrays and counters, txn slots) with the
+    write-count oracle; one timed window of SH_WINDOW eager ticks with the
+    sort wrapper's launches by pack, the routing packs' by leg and the
+    rebase wrapper's by rule, each count set to 0 just before it and read
+    just after; 3 timed windows of replays and their captured launches; a
+    trace of eager ticks (0 cummax) and one of replays, timed by CUDA
+    events inside the trace too; the idle share (busy time against the
+    untraced tick, unresolved where busy is above it); the host syncs of
+    either (0); one captured tick's sort,
+    routing and rebase launches and graph nodes; the counters per tick
+    and the peak memory.  Returns the launch counts and every sort call
+    of one live tick, in call order."""
     from deneva_tpu_torch.profile_tick import breakdown, host_syncs, \
         trace_kernels
-    t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    eng = cells.engine(cells.config(SH_CELL), device=dev)
+    eng = cells.engine(cells.config(name), device=dev)
     N, B, R = eng.cfg.node_cnt, eng.cfg.batch_size, eng.pool.max_req
+    alg = eng.plugin.name
     names, per_tick = sharded_packs(eng)
-    nE = B * R
-    nV = N * eng.cap + nE
-    say("sharded", f"{SH_CELL}: {N} nodes x {eng.n_rows // N} rows, B={B}, "
-        f"R={R}, exchange capacity {eng.cap} lanes per node pair, owner "
-        f"width {nV}; pool and engine built in "
+    reb_tick = {k: v * N for k, v in SH_REBASE[alg].items()}
+    say("sharded", f"{name}: {alg}, {N} nodes x {eng.n_rows // N} rows, "
+        f"B={B}, R={R}, exchange capacity {eng.cap} lanes per node pair, "
+        f"owner width {N * eng.cap + B * R}; pool and engine built in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # eager == replayed over SH_TICKS ticks from the initial state
@@ -2637,119 +2726,141 @@ def phase_sharded(cells, timed_run, fused, dev, gpu_line):
     se = eng.run(SH_TICKS)
     eager_peak = torch.cuda.max_memory_allocated(dev) / 2**20 - base_mb
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     with routing_legs(fused) as cap_legs:
         sg = eng.run_compiled(0)
     torch.cuda.synchronize(dev)
-    capture_s = time.perf_counter() - t0
+    capture_s = time.perf_counter() - t1
     # the routing launches of the one captured cluster-tick graph, by leg
     captured = cap_legs["captured"]
     sg = eng.run_compiled(SH_TICKS, sg)
     graph_peak = torch.cuda.max_memory_allocated(dev) / 2**20 - base_mb
-    s = sharded_equal(f"{SH_CELL} eager == replayed", eng, se, eng, sg)
+    s = sharded_equal(f"{name} eager == replayed", eng, se, eng, sg)
     if eng.global_data_sum(sg) != s["write_cnt"] or not s["txn_cnt"] > 0:
-        raise AssertionError(f"{SH_CELL}: the oracle broke or nothing "
+        raise AssertionError(f"{name}: the oracle broke or nothing "
                              "committed")
-    say("sharded", f"{SH_CELL}: {SH_TICKS} ticks eager == {SH_TICKS} "
-        f"replayed (summary, [summary] line, every node's data and "
+    say("sharded", f"{name}: {SH_TICKS} ticks eager == {SH_TICKS} replayed "
+        f"(summary, [summary] line, every node's data, CC arrays and "
         f"counters, txn slots); global data sum == write_cnt="
-        f"{s['write_cnt']}; txn_cnt={s['txn_cnt']}; capture {capture_s:.2f}"
-        f" s (warm-up and {len(eng.graphs.graphs)} graph)")
+        f"{s['write_cnt']}; capture {capture_s:.2f} s (warm-up and "
+        f"{len(eng.graphs.graphs)} graph)")
 
-    # eager windows: the sort wrapper's launches by pack, and those of the
-    # routing packs by leg
+    # one eager window: every count set to 0 just before, read just after
     c0 = eng.summary(se)
     fused.reset_launches()
+    r0 = dict(rebase.LAUNCHES)
     with routing_legs(fused) as win_legs:
-        eager_ms = []
-        for _ in range(3):
-            se, per = timed_run(eng, SH_WINDOW, se)
-            eager_ms.append(per * 1e3)
+        se, per = timed_run(eng, SH_WINDOW, se)
+    eager_ms = per * 1e3
+    by_pack = dict(fused.LAUNCHES_BY_PACK)
+    reb = launch_delta(rebase.LAUNCHES, r0)
     legs = win_legs["eager"]
-    eager_by_pack = dict(fused.LAUNCHES_BY_PACK)
-    ticks = 3 * SH_WINDOW
-    want = {p: n * ticks for p, n in per_tick.items()}
-    if eager_by_pack != want or legs != {"A": N * ticks, "B": N * ticks} \
+    want = {p: n * SH_WINDOW for p, n in per_tick.items()}
+    want_reb = {k: n * SH_WINDOW for k, n in reb_tick.items()}
+    want_leg = {"A": N * SH_WINDOW, "B": N * SH_WINDOW}
+    if by_pack != want or reb != want_reb or legs != want_leg \
             or captured != {"A": N, "B": N}:
-        raise AssertionError(f"{SH_CELL}: launches by pack {eager_by_pack}"
-                             f" and routing launches {legs} eager, "
-                             f"{captured} in the captured tick, want {want}"
-                             f", {N * ticks} and {N} of each leg")
+        raise AssertionError(
+            f"{name}: over {SH_WINDOW} eager ticks sort launches {by_pack},"
+            f" rebase launches {reb}, routing launches {legs}, and {captured}"
+            f" in the captured tick; want {want}, {want_reb}, {want_leg} and "
+            f"{N} of each leg")
     c1 = eng.summary(se)
-    d = {k: c1[k] - c0[k] for k in ("txn_cnt", "total_txn_abort_cnt",
-                                    "remote_entry_cnt",
-                                    "route_overflow_abort_cnt",
-                                    "commit_defer_cnt")}
-    fused.reset_launches()
+    keys = ("txn_cnt", "total_txn_abort_cnt", "twopl_wait_cnt",
+            "remote_entry_cnt", "route_overflow_abort_cnt",
+            "commit_defer_cnt", "mvcc_tail_fold_cnt")
+    d = {k: (c1.get(k, 0) - c0.get(k, 0)) / SH_WINDOW for k in keys}
+
+    ticks = 3 * SH_WINDOW
     graph_ms = []
     for _ in range(3):
         sg, per = timed_run(eng, SH_WINDOW, sg, compiled=True)
         graph_ms.append(per * 1e3)
     replayed = eng.graphs.launches_of(0, ticks)
-    # the routing launches of as many replays of the one graph, by leg
-    replayed_legs = {k: n * ticks for k, n in captured.items()}
-    if replayed != want:
-        raise AssertionError(f"{SH_CELL}: a replay's captured launches "
-                             f"{replayed}, want {want}")
+    if replayed != {p: n * ticks for p, n in per_tick.items()}:
+        raise AssertionError(f"{name}: the replays' captured launches "
+                             f"{replayed}, want {per_tick} a tick")
 
-    # one trace of eager ticks (0 cummax) and one of replays, for times;
-    # host syncs of an eager tick; one captured tick's launches and nodes
-    box = [se]
+    box, gbox = [se], [sg]
 
     def tick():
         box[0] = eng.tick(box[0])
 
-    per_e, _ = trace_ticks(SH_CELL, eng, tick)
-    syncs, sites = host_syncs(tick, TRACE_TICKS)
-    if syncs:
-        raise AssertionError(f"{SH_CELL}: an eager tick syncs {syncs} times "
-                             f"at {sites}")
-    gbox = [sg]
-
     def replay():
         gbox[0] = eng.advance(1, gbox[0], compiled=True)
 
-    gsyncs, gsites = host_syncs(replay, TRACE_TICKS, "error")
-    per_g = breakdown(trace_kernels(replay, TRACE_TICKS), TRACE_TICKS)
-    nodes = captured_tick(SH_CELL, eng, box[0])
+    timed_tick, e_marks = with_events(tick)
+    per_e, _ = trace_ticks(name, eng, timed_tick)
+    e_win = events_ms(e_marks, TRACE_TICKS)
+    timed_replay, g_marks = with_events(replay)
+    per_g = breakdown(trace_kernels(timed_replay, TRACE_TICKS), TRACE_TICKS)
+    g_win = events_ms(g_marks, TRACE_TICKS)
+    syncs, sites = host_syncs(tick, TRACE_TICKS)
+    gsyncs, _ = host_syncs(replay, TRACE_TICKS, "error")
+    if syncs or gsyncs:
+        raise AssertionError(f"{name}: {syncs} host syncs per eager tick "
+                             f"at {sites}, {gsyncs} per replay")
+    cap_reb = {}
+    nodes = captured_tick(name, eng, box[0], rebase_out=cap_reb)
+    if cap_reb != reb_tick:
+        raise AssertionError(f"{name}: a captured tick launches the rebase "
+                             f"kernel {cap_reb}, want {reb_tick}")
+    calls, _ = sharded_calls(fused, eng, box[0])
 
-    e_med, g_med = float(np.median(eager_ms)), float(np.median(graph_ms))
+    g_med = float(np.median(graph_ms))
     fmt = lambda xs: "[" + ", ".join(f"{x:.4f}" for x in xs) + "]"
-    say("sharded", f"{SH_CELL}: tick_ms eager median={e_med:.4f} "
-        f"{fmt(eager_ms)}, graph median={g_med:.4f} {fmt(graph_ms)} (3 "
-        f"windows of {SH_WINDOW} ticks each, cuda events; eager/graph "
-        f"{e_med / g_med:.2f}x) on {gpu_line}")
-    say("sharded", f"{SH_CELL}: per tick over the {ticks} eager ticks: "
-        f"commits {d['txn_cnt'] / ticks:.2f}, aborts "
-        f"{d['total_txn_abort_cnt'] / ticks:.2f} (abort rate "
-        f"{d['total_txn_abort_cnt'] / max(d['total_txn_abort_cnt'] + d['txn_cnt'], 1):.6f}"
-        f"), remote entries {d['remote_entry_cnt'] / ticks:.1f}, "
-        f"route-overflow aborts {d['route_overflow_abort_cnt'] / ticks:.3f}"
-        f", commit deferrals {d['commit_defer_cnt'] / ticks:.3f}")
-    say("sharded", f"{SH_CELL}: sort launches per tick {sum(per_tick.values())}"
-        f" by pack {{{', '.join(f'{names[p]}: {n}' for p, n in per_tick.items())}}}"
-        f" (wrapper count, eager and replayed; routing launches A={legs['A']} "
-        f"B={legs['B']} over {ticks} eager ticks, A={captured['A']} "
-        f"B={captured['B']} in the captured tick), 0 fallbacks")
-    say("sharded", f"{SH_CELL}: eager tick (torch.profiler, {TRACE_TICKS} "
-        f"ticks): {per_e['kernel_launches']:.1f} device launches, busy "
-        f"{per_e['device_busy_us']:.1f} us, fused kernel "
+    say("sharded", f"{name}: tick_ms graph median={g_med:.4f} "
+        f"{fmt(graph_ms)} (3 windows of {SH_WINDOW} replays), eager "
+        f"{eager_ms:.4f} (1 window of {SH_WINDOW} ticks), cuda events, on "
+        f"{gpu_line}")
+    say("sharded", f"{name}: per tick over {SH_WINDOW} eager ticks: commits "
+        f"{d['txn_cnt']:.2f}, aborts {d['total_txn_abort_cnt']:.2f} (abort "
+        f"rate {d['total_txn_abort_cnt'] / max(d['total_txn_abort_cnt'] + d['txn_cnt'], 1e-9):.6f}"
+        f"), twopl_wait_cnt {d['twopl_wait_cnt']:.2f}, remote entries "
+        f"{d['remote_entry_cnt']:.1f}, route-overflow aborts "
+        f"{d['route_overflow_abort_cnt']:.3f}, commit deferrals "
+        f"{d['commit_defer_cnt']:.3f}, mvcc_tail_fold_cnt "
+        f"{d['mvcc_tail_fold_cnt']:.2f}")
+    say("sharded", f"{name}: sort launches per tick {sum(per_tick.values())}"
+        " by pack {" + ", ".join(f"{names[p]} {p}: {n}"
+                                 for p, n in per_tick.items())
+        + f"}}, routing launches A={legs['A']} B={legs['B']}, rebase "
+        f"launches per tick {reb_tick} (wrapper counts over {SH_WINDOW} "
+        f"eager ticks, {ticks} replays and one captured tick, which holds "
+        f"{nodes.get('kernel', 0)} kernel nodes and A={captured['A']} "
+        f"B={captured['B']} routing launches), 0 fallbacks")
+    say("sharded", f"{name}: eager tick (torch.profiler, {TRACE_TICKS} "
+        f"ticks): busy {per_e['device_busy_us']:.1f} us, fused kernel "
         f"{per_e['fused_sort_scan_us']:.1f} us, idle "
-        f"{1 - per_e['device_busy_us'] / 1e3 / e_med:.3f}, torch.cummax "
+        f"{idle_share(per_e['device_busy_us'], eager_ms)}, torch.cummax "
         f"{per_e['cummax_calls']:g} calls; replayed tick: "
         f"{per_g['kernel_launches']:.1f} launches, busy "
         f"{per_g['device_busy_us']:.1f} us, fused kernel "
         f"{per_g['fused_sort_scan_us']:.1f} us, idle "
-        f"{1 - per_g['device_busy_us'] / 1e3 / g_med:.3f}; host syncs: "
-        f"{syncs:g} per eager tick, {gsyncs:g} per replay; a captured tick "
-        f"holds {nodes.get('kernel', 0)} kernel nodes")
-    say("sharded", f"{SH_CELL}: peak device memory above the engine's own "
-        f"{eager_peak:.1f} MB eager, {graph_peak:.1f} MB with the graph "
-        "(its static state and pool)")
+        f"{idle_share(per_g['device_busy_us'], g_med)} (each share of the "
+        f"untraced window's tick; the traced ticks took {e_win:.4f} / "
+        f"{g_win:.4f} ms each, cuda events inside the trace); host syncs 0 "
+        f"per eager tick and per replay; peak device memory above the "
+        f"engine's own {eager_peak:.1f} MB eager, {graph_peak:.1f} MB with "
+        f"the graph; the cell took {time.perf_counter() - t0:.1f} s")
+    del eng, se, sg, box, gbox
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(calls=calls, names=names, per_tick=per_tick, N=N,
+                by_pack=by_pack, replayed=replayed, rebase=reb,
+                legs=legs, replayed_legs={k: n * ticks
+                                          for k, n in captured.items()})
 
+
+def phase_sharded(cells, timed_run, fused, rebase, dev, gpu_line):
+    """The sharded engine on the card (phase 22 of the module docstring).
+    Returns the four packs' kernels-line rows."""
+    t_phase = time.perf_counter()
+    rec = sharded_cell(cells, SH_CELL, timed_run, fused, rebase, dev,
+                       gpu_line)
     # the four packs of a live tick, in call order: N routing A packs, the
     # N owners' lock sort and unpermute, N routing B packs
-    calls, _ = sharded_calls(fused, eng, box[0])
+    N, calls = rec["N"], rec["calls"]
     picks = (("routing A (dest, held-first, lane)", 0, "A"),
              ("owner lock sort (keykind, ts, payload)", N, None),
              ("owner unpermute (entry index, decision)", N + 1, None),
@@ -2758,37 +2869,126 @@ def phase_sharded(cells, timed_run, fused, dev, gpu_line):
     for label, i, leg in picks:
         cols, nk, shift = calls[i]
         key = (len(cols), nk, cols[0].shape[0], shift)
-        if key not in per_tick:
+        if key not in rec["per_tick"]:
             raise AssertionError(f"{SH_CELL}: call {i} is {key}, not a "
-                                 f"pack of the plan {sorted(per_tick)}")
+                                 f"pack of the plan {sorted(rec['per_tick'])}")
         r = measure_pack(fused, f"{SH_CELL} {label}", cols, nk, shift)
         r.update(label=f"{SH_CELL} {label}", pack=key,
-                 launches=legs[leg] if leg else eager_by_pack[key],
-                 replayed=replayed_legs[leg] if leg else replayed[key])
+                 launches=rec["legs"][leg] if leg else rec["by_pack"][key],
+                 replayed=(rec["replayed_legs"][leg] if leg
+                           else rec["replayed"][key]))
         rows.append(r)
 
     # CPU == CUDA on the small cells
     for name, over in SH_CPU_CELLS:
-        cfg = cells.config(name, **over)
-        gpu = cells.engine(cfg, device=dev)
-        cpu = cells.engine(cfg, pool=gpu.pool, device="cpu")
-        sg_, sc_ = gpu.run(SH_TICKS), cpu.run(SH_TICKS)
-        label = " ".join([name] + [f"{k}={v}" for k, v in over.items()])
-        sm = sharded_equal(f"{label} CUDA == CPU", gpu, sg_, cpu, sc_)
+        sm = sharded_cpu_equal(cells, name, dev, "NO_WAIT", **over)
         if over and not sm["route_overflow_abort_cnt"] > 0:
-            raise AssertionError(f"{label}: no route overflow")
-        say("sharded", f"{label} {SH_TICKS} ticks: CUDA == CPU (summary, "
-            f"[summary] line, every node's data and counters, txn slots); "
-            f"txn_cnt={sm['txn_cnt']} total_txn_abort_cnt="
-            f"{sm['total_txn_abort_cnt']} route_overflow_abort_cnt="
-            f"{sm['route_overflow_abort_cnt']} remote_entry_cnt="
-            f"{sm['remote_entry_cnt']}")
-        del gpu, cpu, sg_, sc_
-    del eng, se, sg, box, gbox
-    gc.collect()
-    torch.cuda.empty_cache()
+            raise AssertionError(f"{name} {over}: no route overflow")
     say("sharded", f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
     return rows
+
+
+#: phase 23: headline_sharded4 under the plugins with no sharded hook
+SP_CELLS = ("headline_sharded4_wait_die", "headline_sharded4_timestamp",
+            "headline_sharded4_mvcc")
+SP_PLUGINS = ("WAIT_DIE", "TIMESTAMP", "MVCC")
+#: CPU == CUDA under each plugin: (cell, plugins); sharded2_small's
+#: TIMESTAMP and MVCC runs are the forced-rebase runs (SP_REBASE_TICKS)
+SP_CPU_CELLS = (("sharded2_small", ("WAIT_DIE",)),
+                ("sharded8_small", SP_PLUGINS))
+#: ticks before and across the forced rebase on sharded2_small
+SP_REBASE_TICKS = (4, 10)
+
+
+def sharded_cpu_equal(cells, name, dev, alg, rebase_at=None, **over):
+    """CUDA == CPU on a small sharded cell under `alg` (and the config
+    overrides `over`) after SH_TICKS ticks, or with `rebase_at` = (before,
+    across) ticks: the counters set just under the rebase limit after
+    `before`, then `across` more ticks, the CUDA run tick by tick, through
+    a rebase that clamps in-flight timestamps to 1.  Returns the
+    summary."""
+    from deneva_tpu_torch.engine.state import STATUS_FREE
+    from deneva_tpu_torch.ops import rebase
+    t0 = time.perf_counter()
+    cfg = cells.config(name, cc_alg=alg, **over)
+    gpu = cells.engine(cfg, device=dev)
+    cpu = cells.engine(cfg, pool=gpu.pool, device="cpu")
+    clamped = 0
+    if rebase_at is None:
+        sg, sc = gpu.run(SH_TICKS), cpu.run(SH_TICKS)
+    else:
+        before, across = rebase_at
+        sg, sc = gpu.run(before), cpu.run(before)
+        N = cfg.node_cnt
+        limit = (3 << 29) // N
+        off = limit - 1 - int(sc.ts_counter.max())
+        sg = sg._replace(ts_counter=sg.ts_counter + off)
+        sc = cpu.run(across, sc._replace(ts_counter=sc.ts_counter + off))
+        r0 = dict(rebase.LAUNCHES)
+        for _ in range(across):
+            sg = gpu.run(1, sg)
+            clamped = max(clamped, int(((sg.txn.ts == 1)
+                                        & (sg.txn.status != STATUS_FREE))
+                                       .sum().item()))
+        reb = launch_delta(rebase.LAUNCHES, r0)
+        want = {k: v * N * across for k, v in SH_REBASE[alg].items()}
+        if reb != want or not clamped \
+                or not int(sg.ts_counter.max()) < limit - (1 << 30) // N // 2:
+            raise AssertionError(f"{name} {alg}: no rebase on the card: "
+                                 f"rebase launches {reb} (want {want}), "
+                                 f"{clamped} clamped txns, ts_counter "
+                                 f"{sg.ts_counter.tolist()}")
+    label = " ".join([name, alg] + [f"{k}={v}" for k, v in over.items()]
+                     + (["across a rebase"] if rebase_at else []))
+    s = sharded_equal(f"{label} CUDA == CPU", gpu, sg, cpu, sc)
+    say("sharded", f"{label}: CUDA == CPU (summary, [summary] line, every "
+        f"node's data, CC arrays and counters, txn slots) after "
+        f"{sum(rebase_at) if rebase_at else SH_TICKS} ticks; txn_cnt="
+        f"{s['txn_cnt']} total_txn_abort_cnt={s['total_txn_abort_cnt']} "
+        f"route_overflow_abort_cnt={s['route_overflow_abort_cnt']} "
+        f"remote_entry_cnt={s['remote_entry_cnt']}"
+        + (f"; {clamped} in-flight txns at ts 1 after the rebase"
+           if rebase_at else "") + f"; {time.perf_counter() - t0:.1f} s")
+    return s
+
+
+def phase_sharded_plugins(cells, timed_run, fused, rebase, dev, gpu_line):
+    """The sharded engine under WAIT_DIE, TIMESTAMP and MVCC (phase 23 of
+    the module docstring).  Returns the kernels-line rows of the two packs
+    phase 22 does not sort, and the rebase kernel's launches by cell."""
+    t_phase = time.perf_counter()
+    recs = {name: sharded_cell(cells, name, timed_run, fused, rebase, dev,
+                               gpu_line) for name in SP_CELLS}
+    rows = []
+    t0 = time.perf_counter()
+    for cell, name, cols_named in (
+            ("headline_sharded4_timestamp", "sharded owner T/O decision sort",
+             "key, ts, 4 flags, lane"),
+            ("headline_sharded4_mvcc", "sharded owner MVCC version insert",
+             "key, -ts, ts, live")):
+        rec = recs[cell]
+        pack = next(p for p, n in rec["names"].items() if n == name)
+        cols, nk, shift = next(c for c in rec["calls"]
+                               if (len(c[0]), c[1], c[0][0].shape[0], c[2])
+                               == pack)
+        users = [n for n in SP_CELLS if pack in recs[n]["by_pack"]]
+        label = f"{' / '.join(users)} {name[8:]} ({cols_named})"
+        r = measure_pack(fused, label, cols, nk, shift)
+        r.update(label=label, pack=pack,
+                 launches=sum(recs[n]["by_pack"][pack] for n in users),
+                 replayed=sum(recs[n]["replayed"][pack] for n in users))
+        rows.append(r)
+    say("sharded", f"the two packs measured in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, algs in SP_CPU_CELLS:
+        for alg in algs:
+            sharded_cpu_equal(cells, name, dev, alg)
+    for alg in ("TIMESTAMP", "MVCC"):
+        sharded_cpu_equal(cells, "sharded2_small", dev, alg,
+                          rebase_at=SP_REBASE_TICKS)
+    say("sharded", f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return rows, {n: recs[n]["rebase"] for n in SP_CELLS}
+
 
 
 def graph_packs(eng):
@@ -2842,14 +3042,14 @@ def windows(timed_run, eng, state, compiled):
 
 def sm_clocks(fn):
     """``fn()`` while nvidia-smi samples the SM clock every 20 ms (started
-    half a second before, stopped after): fn's result and the samples in
-    MHz."""
+    a fifth of a second before, stopped after): fn's result and the
+    samples in MHz."""
     proc = subprocess.Popen(
         ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
          "nounits", "-lms", "20"], stdout=subprocess.PIPE,
         stderr=subprocess.DEVNULL, text=True)
     try:
-        time.sleep(0.5)
+        time.sleep(0.2)
         out = fn()
     finally:
         proc.terminate()
@@ -3069,17 +3269,25 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} graph_conditional_nodes=bound by "
           f"hand (csrc/graph_while.cu); torch's own: {cond}")
+
+    def clock(label):
+        say("time", f"{label} done, {time.perf_counter() - t_start:.1f} s "
+            "since the start")
+
     phase_gpu()
     phase_build(fused, rebase)
     rows = phase_kernel(fused, dev)
+    clock("phases 1-3")
     _, _, by_pack, _ = phase_headline(cells, Engine, timed_run, fused, dev)
     phase_cpu_equal(cells, "headline", Engine, dev, CPU_TICKS)
+    clock("phases 4-5")
     pool, tpcc_by_pack, packs, tpcc_names = phase_tpcc(
         cells, Engine, timed_run, fused, dev)
     names = {**PACK_NAMES, **tpcc_names}
     measure_captured(fused, rows, packs, tpcc_names, names, "tpcc")
     phase_tpcc_cpu_equal(cells, Engine, dev, pool)
     by_pack.update(tpcc_by_pack)
+    clock("phases 6-8")
 
     pps_pool, pps_by_pack, packs, pps_names = phase_pps(
         cells, Engine, timed_run, fused, dev)
@@ -3087,6 +3295,7 @@ def main() -> int:
     measure_captured(fused, rows, packs, pps_names, names, "pps")
     phase_cpu_equal(cells, "pps", Engine, dev, PPS_CPU_TICKS, pool=pps_pool)
     by_pack.update(pps_by_pack)
+    clock("phases 9-11")
 
     wd_pool = phase_wait_die(cells, Engine, timed_run, fused, dev)
     for name, ticks in WD_CPU_TICKS.items():
@@ -3100,22 +3309,37 @@ def main() -> int:
         if not s["twopl_wait_cnt"] > 0:
             raise AssertionError(f"no WAIT decision in the {name} WAIT_DIE "
                                  "run")
+    clock("phase 12")
 
     reb = phase_timestamp(cells, Engine, timed_run, fused, rebase, dev,
                           rows, names, by_pack, pps_pool)
+    clock("phase 13")
     reb_ring = phase_mvcc(cells, Engine, timed_run, fused, rebase, dev,
                           rows, names, by_pack, pps_pool)
+    clock("phase 14")
     calvin = phase_calvin(cells, Engine, timed_run, fused, dev, pps_pool)
+    clock("phase 15")
     occ, loop = phase_occ(cells, Engine, timed_run, fused, dev, pps_pool)
+    clock("phase 16")
     reb_maat, maat_body = phase_maat(cells, Engine, timed_run, fused, rebase,
                                      dev, rows, names, by_pack, pps_pool)
+    clock("phase 17")
     lock_rows = phase_lock_optins(cells, Engine, timed_run, fused, dev)
+    clock("phase 18")
     phase_commit_after(cells, Engine, timed_run, fused, rebase, dev,
                        pps_pool)
+    clock("phase 19")
     # compaction's own packs are rows by cell, like the lock opt-ins'
     maat_body.update(phase_compaction(cells, Engine, timed_run, fused,
                                       rebase, dev, pps_pool, lock_rows))
-    sharded_rows = phase_sharded(cells, timed_run, fused, dev, phase_gpu())
+    clock("phase 21")
+    sharded_rows = phase_sharded(cells, timed_run, fused, rebase, dev,
+                                 phase_gpu())
+    clock("phase 22")
+    plugin_rows, sharded_rebase = phase_sharded_plugins(
+        cells, timed_run, fused, rebase, dev, phase_gpu())
+    sharded_rows += plugin_rows
+    clock("phase 23")
 
     from deneva_tpu_torch.ops import device_loop
     gpu_line = phase_gpu()
@@ -3125,6 +3349,7 @@ def main() -> int:
     for name in GRAPH_CELLS:
         rec = phase_graph(cells, name, Engine, timed_run, fused, dev,
                           gpu_line)
+        clock(f"phase 20 {name}")
         # the set-condition kernel ran once per replayed pass (OCC, MAAT)
         loop["replayed"] += rec["passes"]
         if name in CAA_CELLS:
@@ -3222,12 +3447,13 @@ def main() -> int:
         "maat_body_pass_bound_ms": {k: v["bound_ms"]
                                     for k, v in maat_body.items()},
     })
-    for rec, what, replaces in (
-            (reb, "wts+rts", "deneva_tpu/cc/timestamp.py:119"),
+    for rec, what, replaces, sharded in (
+            (reb, "wts+rts", "deneva_tpu/cc/timestamp.py:119",
+             "headline_sharded4_timestamp"),
             (reb_ring, "w_ring+r_ring, ring mode",
-             "deneva_tpu/cc/mvcc.py:96"),
+             "deneva_tpu/cc/mvcc.py:96", "headline_sharded4_mvcc"),
             (reb_maat, "maat_lr+maat_lw, ring mode",
-             "deneva_tpu/cc/maat.py:168")):
+             "deneva_tpu/cc/maat.py:168", None)):
         r0, r1 = rec["by_shift"][0], rec["by_shift"][2**30]
         kernels.append({
             "name": f"ts_rebase[{what} {rec['n']} cells, shift 0: a tick "
@@ -3244,6 +3470,9 @@ def main() -> int:
             "rebase_tick": {k: r1[k] for k in ("ms", "device_ms",
                                                "plain_ms", "bound_ms",
                                                "bound_by")},
+            # the sharded path's launches by rule (phase 23's eager window)
+            "sharded_launches": ({sharded: sharded_rebase[sharded]}
+                                 if sharded else {}),
         })
     say("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -7,6 +7,7 @@
     python -m deneva_tpu_torch --cell pps_calvin --device cuda --compiled
     python -m deneva_tpu_torch --cell tpcc_occ --device cuda --compiled
     python -m deneva_tpu_torch --cell headline_sharded4 --device cuda --compiled
+    python -m deneva_tpu_torch --cell headline_sharded4_mvcc --device cuda --compiled
 
 Runs 20 warm-up ticks, then ``--ticks`` timed ticks, and prints the
 ``[summary]`` line, commits per tick, and the tick time: from CUDA events

@@ -120,9 +120,15 @@ The sharded engine (``parallel/sharded.py``), N nodes on one card:
   an exchange capacity of 2x the expected remote share (40,960 lanes per
   node pair).  A node's tick arbitrates 81,920 home lanes and 245,760
   owner lanes; the four ``data`` tables take 268 MB.  Nothing is cut.
+- ``headline_sharded4_wait_die``, ``headline_sharded4_timestamp`` and
+  ``headline_sharded4_mvcc``: ``headline_sharded4`` under WAIT_DIE,
+  TIMESTAMP and MVCC, the rest of Deneva's protocol-by-node grid (VLDB'17)
+  at four nodes.  T/O's ``wts``/``rts`` take 134 MB a node; MVCC's two
+  8-slot rings, ``rts0`` and ``w_floor`` about 1.2 GB a node.  Nothing is
+  cut.
 - ``sharded2_small`` and ``sharded8_small``: the same per-node shape at
   B=256 and 16,384 rows a node, on 2 and 8 nodes, for the CPU == CUDA
-  checks.
+  checks (with ``cc_alg`` overridden for the other plugins).
 """
 
 from __future__ import annotations
@@ -177,6 +183,9 @@ CELLS["headline_sharded4"] = dict(
     CELLS["headline"], node_cnt=4, part_cnt=4, synth_table_size=1 << 26,
     query_pool_size=1 << 18, part_per_txn=2, mpr=1.0,
     route_capacity_factor=2.0)
+for _alg in ("WAIT_DIE", "TIMESTAMP", "MVCC"):
+    CELLS[f"headline_sharded4_{_alg.lower()}"] = dict(
+        CELLS["headline_sharded4"], cc_alg=_alg)
 for _n in (2, 8):
     CELLS[f"sharded{_n}_small"] = dict(
         CELLS["headline_sharded4"], node_cnt=_n, part_cnt=_n,

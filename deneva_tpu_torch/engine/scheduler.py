@@ -172,7 +172,9 @@ SHARDED_ADMITTED_OPTINS = ("fused_arbitrate",)
 
 def check_sharded_slice(cfg: Config) -> None:
     """Raise NotImplementedError for a config outside the ported slice of
-    the sharded engine: NO_WAIT on YCSB at SERIALIZABLE in NORMAL mode,
+    the sharded engine: NO_WAIT, WAIT_DIE, TIMESTAMP or MVCC (the plugins
+    with no sharded hook, which run unchanged on the owner's virtual
+    txns) on YCSB at SERIALIZABLE in NORMAL mode,
     ``node_cnt == part_cnt`` in 1..8, ``fused_arbitrate`` on or off, and
     the plain knobs (``acquire_window``, ``route_capacity_factor``,
     ``part_per_txn``, ``mpr``, ``strict_ppt``, ``first_part_local``,
@@ -180,10 +182,11 @@ def check_sharded_slice(cfg: Config) -> None:
     its default."""
     layout = cfg.node_cnt == cfg.part_cnt and 1 <= cfg.node_cnt <= 8
     refuse_outside(
-        cfg, " of the sharded engine (NO_WAIT on YCSB, SERIALIZABLE, "
-        "NORMAL mode, node_cnt == part_cnt in 1..8, fused_arbitrate, every "
-        "other flag at its default)",
-        (NO_WAIT,), (YCSB,), SHARDED_ADMITTED_OPTINS,
+        cfg, " of the sharded engine (NO_WAIT, WAIT_DIE, TIMESTAMP or MVCC "
+        "on YCSB, SERIALIZABLE, NORMAL mode, node_cnt == part_cnt in 1..8, "
+        "fused_arbitrate, every other flag at its default)",
+        (NO_WAIT, WAIT_DIE, TIMESTAMP, MVCC), (YCSB,),
+        SHARDED_ADMITTED_OPTINS,
         None if layout else
         f"node_cnt={cfg.node_cnt}, part_cnt={cfg.part_cnt}",
         levels=(SERIALIZABLE,),

@@ -18,32 +18,41 @@ One tick:
   2. exchange A: every live remote entry (held, requested, and those of
      finishing txns, which vote) is packed held-first per owner and
      shipped; local entries never enter the exchange;
-  3. each owner runs the UNCHANGED single-shard plugin (``NoWait.access``
-     and ``validate``) on its received lanes followed by its own local
-     ones, as virtual single-access txns, and returns one decision word
-     per entry (grant | wait << 1 | abort << 2 | vote << 3);
+  3. each owner runs the UNCHANGED single-shard plugin (``access`` and
+     ``validate``) on its received lanes followed by its own local ones,
+     as virtual single-access txns, and returns one decision word per
+     entry (grant | wait << 1 | abort << 2 | vote << 3);
   4. each home unpacks the words (an unshipped entry votes yes), aborts
      the txns whose entries overflowed, gathers the votes and advances
      its cursors;
   5. exchange B: the committing txns' entries are packed by timestamp and
-     shipped to their owners, which apply the writes (an int32
-     ``index_add_`` of 1 per committed write).  A txn whose commit entries
-     overflow stays finishing and retries (``commit_defer_cnt``): its
-     shipped entries are masked at the owner by the re-gathered commit
-     flag, never dropped;
+     shipped to their owners, which run the plugin's ``on_commit`` on
+     them (T/O's ``wts``, MVCC's version insert) and apply the writes (an
+     int32 ``index_add_`` of 1 per committed write).  A txn whose commit
+     entries overflow stays finishing and retries (``commit_defer_cnt``):
+     its shipped entries are masked at the owner by the re-gathered
+     commit flag, never dropped;
   6. home bookkeeping, and the abort tail into backoff;
   7. the global timestamp rebase, gated on the cluster maximum of the
      counters (``limit = (3 << 29) // N``, a shift of ``(1 << 30) // N *
      N``).  As in the single-shard port it is an unconditional select, so
-     no tick reads a device value on the host.
+     no tick reads a device value on the host: every node's
+     ``on_ts_rebase`` gets the int64 shift, 0 on a tick that does not
+     rebase (the rebase kernel returns at once on 0).
 
-The slice is NO_WAIT on YCSB with every opt-in flag off but
-``fused_arbitrate`` (``check_sharded_slice``); every observatory hook of
+The slice is NO_WAIT, WAIT_DIE, TIMESTAMP and MVCC on YCSB with every
+opt-in flag off but ``fused_arbitrate`` (``check_sharded_slice``): the
+plugins with no sharded hook, run unchanged on the owner's virtual txns
+(TIMESTAMP and MVCC draw a new timestamp on restart).  A node's CC state
+is its owner's, sized for ``N*C + B*R`` single-access txns (MVCC's rings
+carry the scratch cells of that width's version insert), and every plugin
+updates it in place through the node views.  Every observatory hook of
 the reference tick is a no-op at those flags and is left out.  Under
 ``fused_arbitrate`` every sort of the tick runs the fused sort + scan
 kernel: per node the routing packs of exchanges A and B (3 columns by 2
-keys at B*R lanes) and the owner's lock sort and unpermute at
-``N*C + B*R`` lanes.
+keys at B*R lanes) and, at the owner's ``N*C + B*R`` lanes, the lock sort
+and unpermute (NO_WAIT, WAIT_DIE), or T/O's decision sort and unpermute
+(TIMESTAMP, MVCC) and MVCC's version insert.
 """
 
 from __future__ import annotations
@@ -436,7 +445,9 @@ def make_sharded_tick(cfg: Config, plugin, pools: list, cap: int, workload):
         # cluster's largest counter passes the limit ----
         ts_counter = torch.stack([c["ts_counter"] for c in ctx])
         rebase = ts_counter.amax() > limit
-        shift = torch.where(rebase, by * N, 0).to(I32)
+        # the rebase kernel's shift: an int64 scalar on the state's device,
+        # as the single-shard tick passes it
+        shift = torch.where(rebase, by * N, 0)
         txn = TxnState(*(torch.stack(f) for f in
                          zip(*(c["txn"] for c in ctx))))
         txn = txn._replace(ts=torch.where(
@@ -510,10 +521,17 @@ class ShardedEngine(Engine):
             return s
 
         txn = TxnState.empty(B, R, A=self.pool.args.shape[1], device=dev)
+        # a node's CC state is its owner's, whose plugin calls see the
+        # N*C + B*R lanes as single-access txns: MVCC's rings carry the
+        # scratch cells of the owner's version-insert width.  Every node
+        # starts from the same arrays: one node's are made and copied N
+        # times (MVCC's rings are ~1.2 GB a node at the headline's size)
+        db = self.plugin.init_db(cfg, rows_local, N * self.cap + B * R, 1,
+                                 device=dev)
         return ShardState(
             txn=TxnState(*(torch.stack([f] * N) for f in txn)),
-            db=stack([self.plugin.init_db(cfg, rows_local, B, R, device=dev)
-                      for _ in range(N)]),
+            db={k: v.expand(N, *v.shape).contiguous()
+                for k, v in db.items()},
             data=torch.zeros((N, rows_local), dtype=I32, device=dev),
             tables=stack([self.workload.init_tables(cfg, p, device=dev)
                           for p in range(N)]),

@@ -174,8 +174,8 @@ def test_commit_after_access_alone_is_admitted():
 #: sharded opt-ins still to port, the mode ladder, compaction, and the
 #: isolation levels but SERIALIZABLE
 SHARDED_OUTSIDE = {
-    "wait_die": dict(cc_alg="WAIT_DIE"),
-    "timestamp": dict(cc_alg="TIMESTAMP"),
+    "occ": dict(cc_alg="OCC"),
+    "maat": dict(cc_alg="MAAT"),
     "calvin": dict(cc_alg="CALVIN"),
     "tpcc": dict(workload="TPCC"),
     "pps": dict(workload="PPS"),
